@@ -21,16 +21,35 @@ any failure (the script then exits non-zero):
      rebuilt from XOR parity, equal again.  Each checkpoint call prints its
      blocking time beside the calling thread's CPU time and the allocator's
      new device segments (``cudaMalloc`` calls) in that call;
-  4. each kernel against its plain PyTorch version on the card, bit-exact,
-     at small shapes and at the exact shapes the main path gave it (one
-     shard's checksum rows; the XOR group's words in the aligned row layout
-     of ``ops.xor_reduce``), with the kernel's median time from CUDA events,
-     its bound (bytes / 3.35 TB/s) and the plain version's time; and the
-     host-to-device copy of a shard-sized buffer next to the checksum kernel
-     that digests it;
-  5. a ``{"kernels": [...]}`` line: each kernel's launches on the main path
-     (counts set to 0 just before it), times, bound and error;
-  6. as the last line, ``{"ok": true, "device": {...}}``.
+  4. the delta path: the same state and ranks under the default async
+     ``VelocConfig(delta=True, device_delta=True)`` (64 KiB chunks, chain
+     of at most 8, XOR group 4, L3 flush).  v1 is full; before each of
+     v2-v4 one element of 1% of every leaf's chunks (at least one chunk)
+     is bumped in place, and 10% before v5; every version drains before the
+     next.  Per version and rank it prints the capture's device-to-host
+     bytes beside the shard bytes and asserts that v1 is full and v2-v5 are
+     deltas, and that a 1% version copies at least 5x fewer bytes to the
+     host than the rank's full state.  Every rank restores v5 through its
+     4-link chain; rank 0 compacts v5 (no delta region left, the group's
+     parity refreshed) and restores it; then nodes 2 and 3 fail, rank 2's
+     v5 L3 shard is deleted, and rank 2 rebuilds v5 from XOR parity plus its
+     chain — each equal to the live state.  Then a short host-delta run
+     (one rank, ``device_delta=False``, v1 plus one 1% version);
+  5. each kernel against its plain PyTorch version on the card, bit-exact,
+     at small shapes and at the exact shapes the paths gave it (one shard's
+     checksum rows; the XOR group's words in the aligned row layout of
+     ``ops.xor_reduce``; the largest leaf's and the 0-d ``opt/step`` leaf's
+     words in 64 KiB rows for the block hash and its fused diff; the dirty
+     rows of a 1% version of the largest leaf for the gather), with the
+     kernel's median time from CUDA events, its bound and the plain
+     version's time; the gather kernel alone on an index already on the
+     card, beside ``torch.index_select`` on that index and the whole
+     wrapper (host checks and the index copy included); and the
+     host-to-device copy of a shard-sized buffer next to the checksum
+     kernel that digests it;
+  6. a ``{"kernels": [...]}`` line: each kernel's launches on its path
+     (counts set to 0 just before each path), times, bound and error;
+  7. as the last line, ``{"ok": true, "device": {...}}``.
 
 ``--trace DIR`` also records the checkpoint calls and the drain with
 ``torch.profiler`` (``DIR/trace.json.gz``) and runs a probe thread that
@@ -172,6 +191,117 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int) -> dict:
           f"{h2d_ms:.3f} ms, checksum kernel {stats['checksum']['ms']:.4f} "
           f"ms, whole ops.digest {digest_ms:.3f} ms (host clock)")
     stats["h2d_ms"] = h2d_ms
+    return stats
+
+
+def _check_exact(torch, what: str, got, want) -> int:
+    torch.cuda.synchronize()
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = max(_max_abs_err(torch, g, w) for g, w in zip(got, want))
+    if not all(g.shape == w.shape and torch.equal(g, w)
+               for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: kernel != plain (max abs err {err})")
+    return err
+
+
+def check_delta_kernels(torch, gen, big_words: int, step_words: int,
+                        dirty_rows: int, chunk: int) -> dict:
+    """Phase 5 for the delta path's kernels: block hash, fused hash-diff
+    and row gather against their plain versions, bit-exact, at small,
+    ragged and misaligned shapes and at the path's own: the largest leaf's
+    ``big_words`` words and the 0-d ``opt/step`` leaf's ``step_words`` in
+    rows of ``chunk`` words, and ``dirty_rows`` gathered rows (a 1%
+    version of the largest leaf)."""
+    from repro_torch.kernels import blockhash as bh
+    from repro_torch.kernels import gather as ga
+    from repro_torch.kernels import ref
+
+    stats = {}
+    errs = {"blockhash": [], "blockhash_diff": [], "gather_rows": []}
+    # (words, chunk, misaligned): the path's two shapes first, then small,
+    # ragged, chunk % 4 != 0 (scalar loads) and a base 4 bytes off 16
+    cases = [(big_words, chunk, False), (step_words, chunk, False),
+             (5, 7, False), (3 * chunk + 5, chunk, False),
+             (1001, 12, True), (4 * 1030 + 3, 1030, False)]
+    for n, c, off in cases:
+        x = _random_words(torch, gen, (n + 1,))[1:] if off \
+            else _random_words(torch, gen, (n,))
+        rows = -(-n // c)
+        what = f"({n} words, chunk {c}{', misaligned' if off else ''})"
+
+        def plain_fp(x=x, c=c, rows=rows):
+            return ref.blockhash_ref(bh._padded(x, c, rows))
+
+        want = plain_fp()
+        errs["blockhash"].append(_check_exact(
+            torch, f"blockhash {what}", bh.blockhash(x, c), want))
+        prev = want.clone()
+        prev[::3, 1] ^= 1  # every third row dirty, by a low-bit flip
+        errs["blockhash_diff"].append(_check_exact(
+            torch, f"blockhash_diff {what}", bh.blockhash_diff(x, prev, c),
+            ref.blockhash_diff_ref(bh._padded(x, c, rows), prev)))
+        k = max(1, min(rows, dirty_rows if n == big_words else 3))
+        idx = torch.randperm(rows, generator=gen, device="cuda")[:k].cpu()
+        idx[-1] = rows - 1  # the (possibly ragged) last row
+        errs["gather_rows"].append(_check_exact(
+            torch, f"gather_rows {what} x {k}", ga.gather_rows(x, idx, c),
+            ref.gather_rows_ref(bh._padded(x, c, rows), idx.cuda())))
+        if off or (n, c) not in ((big_words, chunk), (step_words, chunk)):
+            continue
+        nbytes = 4 * n
+        ms = _cuda_ms(torch, lambda: bh.blockhash(x, c), reps=20)
+        plain_ms = _cuda_ms(torch, plain_fp, reps=5)
+        bound = _bound_ms(nbytes + 8 * rows)
+        print(f"blockhash {what}: bit-exact; kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ms, plain {plain_ms:.4f} ms")
+        diff_ms = _cuda_ms(torch, lambda: bh.blockhash_diff(x, prev, c),
+                           reps=20)
+        diff_plain = _cuda_ms(torch, lambda: ref.blockhash_diff_ref(
+            bh._padded(x, c, rows), prev), reps=5)
+        diff_bound = _bound_ms(nbytes + 20 * rows)
+        print(f"blockhash_diff {what}: bit-exact; kernel {diff_ms:.4f} ms, "
+              f"bound {diff_bound:.4f} ms, plain {diff_plain:.4f} ms")
+        if n == big_words:
+            stats["blockhash"] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound, shape=[rows, c])
+            stats["blockhash_diff"] = dict(
+                ms=diff_ms, plain_ms=diff_plain, bound_ms=diff_bound,
+                shape=[rows, c])
+            # the gather at a 1% version's dirty rows: the kernel alone on
+            # an index already on the card, beside the one PyTorch call that
+            # computes the same rows (full rows only) on that index, and the
+            # whole wrapper (host checks, index copy, launch)
+            dev_idx = idx.cuda().to(torch.int32)
+            g_out = torch.empty((k, c), dtype=torch.int32, device="cuda")
+            g_ms = _cuda_ms(torch, lambda: ga.launch(x, c, dev_idx, g_out),
+                            reps=20)
+            g_wrap = _cuda_ms(torch, lambda: ga.gather_rows(x, idx, c),
+                              reps=20)
+            g_plain = _cuda_ms(torch, lambda: ref.gather_rows_ref(
+                bh._padded(x, c, rows), dev_idx), reps=5)
+            full = x[:(n // c) * c].view(n // c, c)
+            lib_idx = dev_idx.clamp(max=n // c - 1)
+            lib_ms = _cuda_ms(torch, lambda: torch.index_select(
+                full, 0, lib_idx), reps=20)
+            g_bound = _bound_ms(2 * k * c * 4 + 4 * k)
+            print(f"gather_rows {what} x {k} rows: bit-exact; kernel "
+                  f"{g_ms:.4f} ms, whole wrapper {g_wrap:.4f} ms, bound "
+                  f"{g_bound:.6f} ms, plain {g_plain:.4f} ms, "
+                  f"torch.index_select {lib_ms:.4f} ms")
+            stats["gather_rows"] = dict(ms=g_ms, wrapper_ms=g_wrap,
+                                        plain_ms=g_plain, bound_ms=g_bound,
+                                        library_ms=lib_ms, shape=[k, c])
+        del x, want, prev
+    for name, e in errs.items():
+        stats[name]["max_abs_err"] = max(e)
+    try:  # indices outside the rows are refused on the host
+        ga.gather_rows(_random_words(torch, gen, (10,)), [3], 4)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("gather_rows launched with an index past the "
+                             "last row")
     return stats
 
 
@@ -422,6 +552,181 @@ def main_path(torch, leaves, ranks, scratch: Path, trace: Path | None = None
                 xor_words=-(-max(shard_bytes) // 4))
 
 
+def _bump_chunks(torch, gen, leaves, chunk_bytes: int, per: int):
+    """In place on the card: add 1 to the first element of
+    ``max(1, rows // per)`` chunks of every leaf, chosen by ``gen``."""
+    with torch.no_grad():
+        for _, t in leaves:
+            rows = -(-t.numel() * t.element_size() // chunk_bytes)
+            pick = torch.randperm(rows, generator=gen, device="cuda")[
+                :max(1, rows // per)]
+            flat = t.view(-1)
+            flat[pick * (chunk_bytes // t.element_size())] += 1
+
+
+def delta_path(torch, leaves, ranks, load, scratch: Path, seed: int) -> dict:
+    """Phase 4: device-delta checkpoints v1-v5 of the full train state, 4
+    ranks; restart through the chain, compaction, parity rebuild."""
+    from repro_torch.core import Cluster, VelocClient, VelocConfig
+    from repro_torch.core import format as fmt
+    from repro_torch.core import restart as rst
+
+    vcfg = VelocConfig(mode="async", scratch=str(scratch), delta=True,
+                       device_delta=True)
+    cluster = Cluster(vcfg, nranks=NRANKS)
+    clients = [VelocClient(vcfg, cluster, rank=r) for r in range(NRANKS)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    chunk_bytes = vcfg.delta_chunk_bytes
+    d2h_prev = [0] * NRANKS
+    per_version = []
+    try:
+        for v, per in ((1, None), (2, 100), (3, 100), (4, 100), (5, 10)):
+            if per is not None:
+                _bump_chunks(torch, gen, leaves, chunk_bytes, per)
+            t0 = time.perf_counter()
+            futs = [c.checkpoint(ranks[r], version=v)
+                    for r, c in enumerate(clients)]
+            t_sub = time.perf_counter()
+            for c in clients:
+                if not c.wait(timeout=600):
+                    raise AssertionError(f"v{v} did not drain in 600 s")
+            drain = time.perf_counter() - t_sub
+            row = {"version": v, "dirty_per": per, "submit_s": t_sub - t0,
+                   "drain_s": drain, "ranks": []}
+            for r, (c, f) in enumerate(zip(clients, futs)):
+                if f.module_errors:
+                    raise AssertionError(f"v{v} rank {r}: {f.module_errors}")
+                d2h = c.device_capture.stats["d2h_bytes"]
+                row["ranks"].append({
+                    "kind": f.results["delta_kind"],
+                    "d2h_bytes": d2h - d2h_prev[r],
+                    "shard_bytes": len(cluster.fetch_shard(vcfg.name, v, r)),
+                    "full_bytes": load[r],
+                    "blocking_s": f.results["app_blocking_s"],
+                    "dirty_ratio": f.results["delta_dirty_ratio"]})
+                d2h_prev[r] = d2h
+            what = "full" if per is None else f"1/{per} of chunks dirtied"
+            print(f"delta v{v} ({what}): "
+                  f"submit {row['submit_s']:.3f} s, drain {drain:.3f} s; "
+                  "per rank kind / D2H bytes / shard bytes / full bytes: "
+                  + "; ".join(f"{x['kind']} / {x['d2h_bytes']} / "
+                              f"{x['shard_bytes']} / {x['full_bytes']}"
+                              for x in row["ranks"]))
+            want = "full" if v == 1 else "delta"
+            if any(x["kind"] != want for x in row["ranks"]):
+                raise AssertionError(f"v{v}: expected {want} on every rank, "
+                                     f"got {[x['kind'] for x in row['ranks']]}")
+            if per == 100:
+                for r, x in enumerate(row["ranks"]):
+                    if x["d2h_bytes"] * 5 > x["full_bytes"]:
+                        raise AssertionError(
+                            f"v{v} rank {r}: {x['d2h_bytes']} D2H bytes at 1% "
+                            f"dirty, not 5x below {x['full_bytes']}")
+            per_version.append(row)
+
+        restart_s = []
+        for r, c in enumerate(clients):
+            chain = rst.chain_versions(cluster, vcfg.name, 5, r)
+            if chain != [5, 4, 3, 2, 1]:
+                raise AssertionError(f"rank {r} chain {chain}")
+            t1 = time.perf_counter()
+            version, got = c.restart_latest(ranks[r])
+            torch.cuda.synchronize()
+            restart_s.append(time.perf_counter() - t1)
+            if version != 5:
+                raise AssertionError(f"rank {r} restored v{version}: "
+                                     f"{c.restart_diagnostics}")
+            _assert_equal(torch, got, ranks[r], f"rank {r} chain restart")
+        print(f"delta restart_latest through the 4-link chain per rank (s): "
+              f"{[round(x, 3) for x in restart_s]}, all v5 and equal")
+
+        t1 = time.perf_counter()
+        if clients[0].compact() != 5:
+            raise AssertionError("compact() did not fold v5")
+        compact_s = time.perf_counter() - t1
+        reader = fmt.ShardReader(cluster.fetch_shard(vcfg.name, 5, 0))
+        if reader.delta_regions():
+            raise AssertionError("compacted shard still holds delta regions")
+        if not clients[0].refresh_parity(5):
+            raise AssertionError("parity refresh after compaction failed")
+        t1 = time.perf_counter()
+        version, got = clients[0].restart_latest(ranks[0])
+        torch.cuda.synchronize()
+        compact_restart_s = time.perf_counter() - t1
+        if version != 5:
+            raise AssertionError(f"rank 0 after compaction restored "
+                                 f"v{version}: {clients[0].restart_diagnostics}")
+        _assert_equal(torch, got, ranks[0], "rank 0 compacted restart")
+        print(f"compact v5 on rank 0: {compact_s:.3f} s, shard "
+              f"{len(cluster.fetch_shard(vcfg.name, 5, 0))} bytes, no delta "
+              f"region; restart {compact_restart_s:.3f} s, v5 and equal")
+
+        cluster.fail_node(2)
+        cluster.fail_node(3)
+        for t in cluster.external_tiers:
+            t.delete(fmt.shard_key(vcfg.name, 5, 2))
+        if cluster.fetch_shard(vcfg.name, 5, 2) is not None or \
+                cluster.fetch_partner_copy(vcfg.name, 5, 2, 1) is not None:
+            raise AssertionError("rank 2's v5 shard survived the node loss")
+        t1 = time.perf_counter()
+        version, got = clients[2].restart_latest(ranks[2])
+        torch.cuda.synchronize()
+        parity_s = time.perf_counter() - t1
+        if version != 5:
+            raise AssertionError(f"rank 2 after node loss restored "
+                                 f"v{version}: {clients[2].restart_diagnostics}")
+        _assert_equal(torch, got, ranks[2], "rank 2 delta parity rebuild")
+        print(f"node loss: rank 2 rebuilt v5 from XOR parity plus its chain "
+              f"in {parity_s:.3f} s, equal")
+        big = max((t for _, t in leaves), key=lambda t: t.numel())
+        stats = dict(clients[0].device_capture.stats)
+    finally:
+        for c in clients:
+            c.shutdown()
+    return dict(versions=per_version, restart_s=restart_s,
+                compact_s=compact_s, compact_restart_s=compact_restart_s,
+                parity_s=parity_s, capture_stats_rank0=stats,
+                big_words=big.numel() * big.element_size() // 4,
+                dirty_rows=max(1, -(-big.numel() * big.element_size()
+                                    // chunk_bytes) // 100),
+                chunk_words=chunk_bytes // 4)
+
+
+def host_delta_path(torch, leaves, state, scratch: Path, seed: int) -> dict:
+    """Phase 4, host side: one rank, ``delta=True, device_delta=False``, v1
+    and one 1% version; the fingerprints hash host bytes."""
+    from repro_torch.core import Cluster, VelocClient, VelocConfig
+
+    vcfg = VelocConfig(mode="async", scratch=str(scratch), delta=True,
+                       partner=False, xor_group=0)
+    client = VelocClient(vcfg, Cluster(vcfg, nranks=1))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    try:
+        for v in (1, 2):
+            if v == 2:
+                _bump_chunks(torch, gen, leaves, vcfg.delta_chunk_bytes, 100)
+            t0 = time.perf_counter()
+            f = client.checkpoint(state, version=v)
+            if not client.wait(timeout=600):
+                raise AssertionError(f"host delta v{v} did not drain")
+            if f.module_errors:
+                raise AssertionError(f"host delta v{v}: {f.module_errors}")
+            out.append({"kind": f.results["delta_kind"],
+                        "shard_bytes": f.results["shard_bytes"],
+                        "s": time.perf_counter() - t0})
+        version, got = client.restart_latest(state)
+        if [x["kind"] for x in out] != ["full", "delta"] or version != 2:
+            raise AssertionError(f"host delta: {out}, restored v{version}")
+        _assert_equal(torch, got, state, "host delta restart")
+    finally:
+        client.shutdown()
+    print("host delta (1 rank): " + "; ".join(
+        f"v{i + 1} {x['kind']} {x['shard_bytes']} bytes in {x['s']:.3f} s"
+        for i, x in enumerate(out)) + "; restart v2 equal")
+    return {"versions": out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -443,9 +748,29 @@ def main(argv=None) -> int:
     os.environ["REPRO_TORCH_BUILD_DIR"] = str(scratch / "kernels")
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels import blockhash as bh
     from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import gather as ga
     from repro_torch.kernels import ops
     from repro_torch.kernels import xor_parity as xp
+
+    counters = {"checksum": ck.LAUNCHES, "xor_reduce": xp.LAUNCHES,
+                "blockhash": bh.LAUNCHES, "blockhash_diff": bh.DIFF_LAUNCHES,
+                "gather_rows": ga.LAUNCHES}
+
+    def run_path(name, kernels, fn):
+        """Drive one path with every count at 0 just before it; fail if a
+        kernel of the path was not launched."""
+        for c in counters.values():
+            c.reset()
+        out = fn()
+        launches = {k: c.value for k, c in counters.items()}
+        print(f"{name} launches: {launches}")
+        for k in kernels:
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the "
+                                     f"{name}")
+        return out, launches
 
     card = _card_line()
     print(card)
@@ -460,45 +785,75 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.2f} s")
 
-    leaves, ranks, _ = make_state(torch, args.seed)
-    ck.LAUNCHES.reset()
-    xp.LAUNCHES.reset()
-    path = main_path(torch, leaves, ranks, scratch / "scratch",
-                     trace=Path(args.trace) if args.trace else None)
-    launches = {"checksum": ck.LAUNCHES.value,
-                "xor_reduce": xp.LAUNCHES.value}
-    print(f"main path launches: {launches}; v2 shard is "
-          f"{path['shard_rows']} checksum rows, {path['xor_words']} XOR words")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    leaves, ranks, load = make_state(torch, args.seed)
+    path, dense_launches = run_path(
+        "main path", ("checksum", "xor_reduce"),
+        lambda: main_path(torch, leaves, ranks, scratch / "scratch",
+                          trace=Path(args.trace) if args.trace else None))
+    print(f"v2 shard is {path['shard_rows']} checksum rows, "
+          f"{path['xor_words']} XOR words")
     shutil.rmtree(scratch / "scratch", ignore_errors=True)
+    delta, delta_launches = run_path(
+        "delta path", tuple(counters),
+        lambda: delta_path(torch, leaves, ranks, load, scratch / "delta",
+                           args.seed + 2))
+    shutil.rmtree(scratch / "delta", ignore_errors=True)
+    step = ranks_leaf(ranks, "opt/step")
+    step_words = -(-step.numel() * step.element_size() // 4)
+    _, host_launches = run_path(
+        "host-delta path", ("blockhash", "checksum"),
+        lambda: host_delta_path(torch, list(ranks[0].items()), ranks[0],
+                                scratch / "host_delta", args.seed + 3))
+    shutil.rmtree(scratch / "host_delta", ignore_errors=True)
+    print(f"delta path {json.dumps(delta)}")
     del leaves, ranks
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],
                           xor_words=path["xor_words"])
+    stats.update(check_delta_kernels(
+        torch, gen, big_words=delta["big_words"], step_words=step_words,
+        dirty_rows=delta["dirty_rows"], chunk=delta["chunk_words"]))
 
     src = {"checksum": ("src/repro_torch/csrc/checksum.cu",
-                        "src/repro/kernels/checksum.py:31"),
+                        "src/repro/kernels/checksum.py:31", dense_launches),
            "xor_reduce": ("src/repro_torch/csrc/xor_parity.cu",
-                          "src/repro/kernels/xor_parity.py:28")}
+                          "src/repro/kernels/xor_parity.py:28",
+                          dense_launches),
+           "blockhash": ("src/repro_torch/csrc/blockhash.cu",
+                         "src/repro/kernels/checksum.py:84", delta_launches),
+           "blockhash_diff": ("src/repro_torch/csrc/blockhash.cu",
+                              "src/repro/kernels/checksum.py:115",
+                              delta_launches),
+           "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
+                           "src/repro/kernels/checksum.py:149",
+                           delta_launches)}
     kernels = []
-    for name in ("checksum", "xor_reduce"):
+    for name, (source, replaces, launches) in src.items():
         s = stats[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name][0],
-            "replaces": src[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {"main": dense_launches[name],
+                                 "delta": delta_launches[name],
+                                 "host_delta": host_launches[name]},
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "shape": s["shape"]})
+            "bound_by": "bytes", "library_ms": s.get("library_ms"),
+            "wrapper_ms": s.get("wrapper_ms"), "shape": s["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ranks_leaf(ranks, name):
+    for r in ranks:
+        if name in r:
+            return r[name]
+    raise KeyError(name)
 
 
 if __name__ == "__main__":

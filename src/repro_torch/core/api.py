@@ -34,8 +34,8 @@ from typing import Any, Callable, Optional, Union
 from repro_torch.core import concurrency
 from repro_torch.core import format as fmt
 from repro_torch.core.backend import ActiveBackend, RateLimiter
-from repro_torch.core.capture import (iter_host_regions, snapshot_device,
-                                      tree_from_regions)
+from repro_torch.core.capture import (DeviceDeltaCapture, iter_host_regions,
+                                      snapshot_device, tree_from_regions)
 from repro_torch.core.future import CheckpointFuture
 from repro_torch.core.modules import CheckpointContext
 from repro_torch.core.phases import EMAPhasePredictor
@@ -69,9 +69,10 @@ class VelocConfig:
     delta: bool = False                 # incremental (differential) shards
     delta_chunk_bytes: int = 64 * 1024  # dirty-detection granularity
     delta_max_chain: int = 8            # deltas before a forced full shard
-    device_delta: bool = False          # device-side dirty tracking
-    #                                     (requires delta=True; neither is
-    #                                     ported yet)
+    device_delta: bool = False          # fingerprint-diff tensors in device
+    #                                     memory and gather only dirty
+    #                                     chunks to the host (requires
+    #                                     delta=True)
     aggregate: bool = False             # coalesce L3 blobs into one segment
     pack_versions: int = 0              # >=2: pack that many consecutive
     #                                     delta versions into one rolling
@@ -137,10 +138,21 @@ class VelocConfig:
                 ModuleSpec("serialize", {"encoding": self.encoding,
                                          "checksums": self.checksums}),
                 ModuleSpec("local")]
-        if self.delta or self.device_delta:
-            raise NotImplementedError(
-                "delta=True / device_delta=True: delta checkpointing is not "
-                "ported yet (ROADMAP.md queue 1, items 4-5)")
+        if self.delta:
+            if self.encoding == "q8":
+                # a lossy base can never satisfy a delta overlay's digest:
+                # untouched chunks decode differently from what was hashed,
+                # so every chain restore would fail and fall back.
+                raise ValueError(
+                    "delta=True requires a lossless encoding "
+                    "(raw or zlib), not 'q8'")
+            mods.insert(1, ModuleSpec("delta", {
+                "chunk_bytes": self.delta_chunk_bytes,
+                "max_chain": self.delta_max_chain}))
+        elif self.device_delta:
+            raise ValueError("device_delta=True requires delta=True (the "
+                             "device diff lands in the delta module's "
+                             "tracker/chain)")
         if self.partner:
             mods.append(ModuleSpec("partner",
                                    {"distance": self.partner_distance}))
@@ -2234,6 +2246,16 @@ class VelocClient:
             "client._compact_lock", concurrency.RANK_CLIENT)
         self._compact_pending = False
         self.engine = spec.compile(backend=self.backend)
+        #: device-side dirty tracking: fingerprints stay resident in device
+        #: memory and only dirty chunks reach the host (spec.device_delta,
+        #: requires delta)
+        self.device_capture: Optional[DeviceDeltaCapture] = None
+        if spec.device_delta:
+            dopts = spec.module_options("delta") or {}
+            kw = {}
+            if "chunk_bytes" in dopts:
+                kw["chunk_bytes"] = dopts["chunk_bytes"]
+            self.device_capture = DeviceDeltaCapture(**kw)
         self._history: list[dict] = []
         #: (version, level, error) entries for every restore candidate that
         #: was tried and failed during the last ``restart_latest`` call.
@@ -2258,7 +2280,8 @@ class VelocClient:
         """Stage every protected region (host copy of current values)."""
         assert self._open_version is not None
         for name, value in self._protected.items():
-            for r in iter_host_regions(value, rank_prefix=f"{name}/"):
+            for r in iter_host_regions(value, rank_prefix=f"{name}/",
+                                       device_delta=self.device_capture):
                 self._staged.append(r)
 
     def checkpoint_end(self, *, defensive: bool = True, meta=None
@@ -2283,10 +2306,12 @@ class VelocClient:
         t0 = time.monotonic()
         if snap is None:
             snap = snapshot_device(state) if device_snapshot else state
+        cap = self.device_capture
         if self.spec.mode == "async":
-            regions: Any = lambda: list(iter_host_regions(snap))
+            regions: Any = lambda: list(iter_host_regions(
+                snap, device_delta=cap))
         else:
-            regions = list(iter_host_regions(snap))
+            regions = list(iter_host_regions(snap, device_delta=cap))
         fut = self._submit(regions, version, defensive=defensive, meta=meta)
         fut.results["app_blocking_s"] = time.monotonic() - t0
         return fut

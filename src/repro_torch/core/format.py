@@ -3,8 +3,9 @@
 Shard layout:  [MAGIC 8B][header_len u64][header JSON][payload bytes...]
 The header's region table records (name, shape, dtype, offset, nbytes,
 digest, encoding) per protected region — the on-disk realization of the
-VELOC ``mem_protect`` declarations.  Encodings: "raw" and "zlib"; "q8"
-(block int8) and "delta" are not ported yet and raise NotImplementedError.
+VELOC ``mem_protect`` declarations.  Encodings: "raw", "zlib" and "delta"
+(a region's dirty chunks against its parent version, repro_torch.core.delta);
+"q8" (block int8) is not ported yet and raises NotImplementedError.
 The bytes are identical to the JAX package's, so either package reads the
 other's checkpoints.  bfloat16 regions, which numpy cannot hold, travel as
 their 16-bit patterns with the dtype name "bfloat16" and read back as
@@ -55,12 +56,26 @@ class Region:
     #: on-disk dtype name when it is not ``str(array.dtype)``: "bfloat16"
     #: for a uint16 array holding bfloat16 bit patterns
     dtype: Optional[str] = None
+    #: set by the delta pipeline module: serialize only the dirty chunks of
+    #: this region (a repro_torch.core.delta.DeltaPatch) instead of its bytes.
+    patch: Any = None
+    #: device-side dirty tracking (repro_torch.core.capture): the
+    #: UNMATERIALIZED device tensor + the DeviceDeltaCapture that diffs it in
+    #: device memory.  When set with ``array=None``, the delta module either
+    #: attaches a patch (only dirty chunks ever reach the host) or
+    #: materializes ``array``.
+    leaf: Any = None
+    capture: Any = None
 
 
 _NOT_PORTED_Q8 = ('the "q8" encoding is not ported yet (ROADMAP.md queue 1, '
                   "item 6)")
-_NOT_PORTED_DELTA = ("delta-encoded regions are not ported yet (ROADMAP.md "
-                     "queue 1, item 4)")
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The on-disk (numpy) name of a tensor dtype, as ``host_array`` writes
+    it: "float32" for ``torch.float32``, "bfloat16" for ``torch.bfloat16``."""
+    return str(dtype).removeprefix("torch.")
 
 
 def host_array(value) -> tuple[np.ndarray, str]:
@@ -97,7 +112,37 @@ def serialize_shard(regions: list[Region], meta: dict, *, encoding: str = "raw",
     payload = io.BytesIO()
     table = []
     for r in regions:
-        arr, dtype = host_array(r.array)
+        if r.patch is not None:
+            # differential region: only the dirty chunks travel; the reader
+            # needs the parent version's array to reconstruct (read(base=)).
+            # Deliberately does NOT touch r.array — a device-delta region
+            # reaches here with array=None and its bytes still on the device.
+            from repro_torch.core import delta as _delta
+
+            p = r.patch
+            table.append({
+                "name": r.name,
+                "shape": list(p.shape),
+                "dtype": p.dtype,
+                "global_shape": list(r.global_shape or tuple(p.shape)),
+                "shard_axis": r.shard_axis,
+                "shard_index": r.shard_index,
+                "shard_count": r.shard_count,
+                "encoding": "delta",
+                "base_version": p.base_version,
+            })
+            blob = _delta.encode_patch(p)
+            entry = table[-1]
+            if checksums:
+                entry["digest"] = kops.digest(blob)
+            entry["offset"] = payload.tell()
+            entry["nbytes"] = len(blob)
+            payload.write(blob)
+            continue
+        # guard: a device-delta region that bypassed the delta module (e.g.
+        # module toggled off) still serializes correctly
+        value = r.leaf if r.array is None and r.leaf is not None else r.array
+        arr, dtype = host_array(value)
         entry = {
             "name": r.name,
             "shape": list(arr.shape),
@@ -161,12 +206,34 @@ class ShardReader:
         return [r["name"] for r in self.header["regions"]
                 if r["encoding"] == "delta"]
 
+    def read_patch(self, name: str, *, verify: bool = True):
+        """The DeltaPatch of a delta-encoded region (repro_torch.core.delta)."""
+        from repro_torch.core import delta as _delta
+
+        e = self.entry(name)
+        if e["encoding"] != "delta":
+            raise ValueError(f"region {name!r} is {e['encoding']!r}, "
+                             f"not delta-encoded")
+        blob = bytes(self._payload[e["offset"]:e["offset"] + e["nbytes"]])
+        if verify and "digest" in e and kops.digest(blob) != e["digest"]:
+            raise IOError(f"checksum mismatch in region {name!r}")
+        return _delta.decode_patch(blob)
+
     def read(self, name: str, *, verify: bool = True, base=None):
         """The region's array: numpy, or a ``torch.bfloat16`` tensor for a
-        bfloat16 region (see ``array_from_bytes``)."""
+        bfloat16 region (see ``array_from_bytes``).  A delta-encoded region
+        needs ``base``, its parent version's array (either form)."""
         e = self.entry(name)
         if e["encoding"] == "delta":
-            raise NotImplementedError(_NOT_PORTED_DELTA)
+            from repro_torch.core import delta as _delta
+
+            if base is None:
+                raise ValueError(
+                    f"region {name!r} is delta-encoded against "
+                    f"v{e.get('base_version')}; pass its base array "
+                    f"(restart walks the parent chain for you)")
+            return _delta.overlay(base, self.read_patch(name, verify=verify),
+                                  verify=verify)
         if e["encoding"] == "q8":
             raise NotImplementedError(_NOT_PORTED_Q8)
         blob = bytes(self._payload[e["offset"]:e["offset"] + e["nbytes"]])

@@ -11,7 +11,6 @@ integrity, format conversion) slot in by priority.
 Built-ins register in the default ``ModuleRegistry`` (repro_torch.core.pipeline)
 under short names — "interval", "serialize", "local", "partner", "xor",
 "flush", "verify" — so a ``PipelineSpec`` can name them declaratively.
-The delta module is not ported yet (``PipelineSpec.compile`` refuses it).
 Modules that complete a resilience level carry a ``level`` tag ("L1"/"L2"/
 "L3") used by ``CheckpointFuture`` per-level completion events.
 """
@@ -23,6 +22,8 @@ from typing import Any, Optional
 
 import numpy as np
 
+from repro_torch.core import concurrency
+from repro_torch.core import delta as dlt
 from repro_torch.core import erasure, format as fmt
 from repro_torch.core.pipeline import register_module
 from repro_torch.core.storage import pick_tier
@@ -85,6 +86,162 @@ class IntervalModule(Module):
             ctx.results["skip_reason"] = "interval"
             return "skip"
         self._last = now
+        return "ok"
+
+
+@register_module("delta")
+class DeltaModule(Module):
+    """Incremental checkpointing: fingerprint each region's chunks with the
+    block-hash kernel, diff against the last persisted version, and attach
+    a DeltaPatch so serialize emits only the dirty chunks.
+
+    Sits between "interval" and "serialize" (priority 8): past the async
+    blocking cut, so fingerprinting and diffing never block the app.  Emits
+    a *full* shard when there is no previous state, when the chain reaches
+    ``max_chain`` deltas (bounding restart latency), or when more than
+    ``max_dirty_ratio`` of the bytes changed (a delta would not pay for its
+    chunk table).  Chain metadata (parent / base version) travels in the
+    shard meta and the manifest so restart can walk the chain and GC can
+    refcount live bases."""
+
+    name = "delta"
+    priority = 8
+
+    def __init__(self, chunk_bytes: int = dlt.DEFAULT_CHUNK_BYTES,
+                 max_chain: int = 8, max_dirty_ratio: float = 0.5):
+        self.chunk_bytes = chunk_bytes
+        self.max_chain = max_chain
+        self.max_dirty_ratio = max_dirty_ratio
+        self._trackers: dict[tuple, dlt.DeltaTracker] = {}
+        #: per-(stream, rank) serialization locks — rank MODULE: held
+        #: across cluster queries (has_shard_record takes the cluster
+        #: lock), so they sit OUTSIDE it in the canonical order
+        self._locks: dict[tuple, concurrency.TrackedLock] = {}
+        self._guard = concurrency.TrackedLock(
+            "delta._guard", concurrency.RANK_MODULE_GUARD)
+
+    def tracker(self, name: str, rank: int) -> dlt.DeltaTracker:
+        with self._guard:
+            return self._trackers.setdefault((name, rank), dlt.DeltaTracker())
+
+    def _lock(self, key: tuple) -> concurrency.TrackedLock:
+        with self._guard:
+            lk = self._locks.get(key)
+            if lk is None:
+                lk = self._locks[key] = concurrency.TrackedLock(
+                    f"delta._locks[{key[0]}:r{key[1]}]",
+                    concurrency.RANK_MODULE)
+            return lk
+
+    def reset_chain(self, name: str, rank: int, version: int):
+        """Compaction hook: version's chain was folded into a full shard."""
+        self.tracker(name, rank).note_compacted(version)
+
+    def process(self, ctx):
+        if callable(ctx.regions):
+            ctx.regions = ctx.regions()  # materialize D2H (we're off the
+            # app's critical path past the blocking cut)
+        t = self.tracker(ctx.name, ctx.rank)
+        # per-stream lock: backend workers may race two versions of the same
+        # rank; diffs and tracker updates must serialize per stream.
+        with self._lock((ctx.name, ctx.rank)):
+            stale = t.last_version is not None and ctx.version <= t.last_version
+            # self-healing: if the would-be parent never hit ANY tier (every
+            # write stage failed for it), chaining onto it would poison the
+            # next max_chain versions — emit a standalone full shard instead.
+            # Only judged once the parent's pipeline has settled: with >1
+            # backend worker its write stages may still be in flight, and a
+            # not-yet-recorded shard is not an orphan (a spurious full here
+            # would forfeit the delta win on every back-to-back checkpoint).
+            parent_settled = True
+            eng = getattr(ctx, "engine", None)
+            if eng is not None and eng.backend is not None and not t.empty:
+                parent_settled = eng.backend.status(
+                    f"pipe:{ctx.name}:{ctx.rank}", t.last_version) in (
+                    "done", "error", "superseded", "deadline-miss")
+            orphaned = (not t.empty and not stale and parent_settled
+                        and not ctx.cluster.has_shard_record(
+                            ctx.name, t.last_version, ctx.rank))
+            want_full = t.empty or stale or orphaned \
+                or t.chain_len >= self.max_chain
+            stream = (ctx.name, ctx.rank)
+            new_fps: dict[str, np.ndarray] = {}
+            patches: dict[str, dlt.DeltaPatch] = {}
+            #: device-delta regions: name -> (region, plan, capture).  Their
+            #: diff runs in device memory (fused fingerprint-diff kernel)
+            #: and — unlike the host path — NO bytes reach the host until
+            #: the dirty-ratio decision below picks gather or materialize.
+            plans: dict[str, tuple] = {}
+            dirty = total = 0
+            for r in ctx.regions:
+                cap = getattr(r, "capture", None)
+                if cap is not None and r.array is None:
+                    plan = cap.plan(stream, r.name, r.leaf,
+                                    force_full=want_full)
+                    plans[r.name] = (r, plan, cap)
+                    total += plan.nbytes
+                    dirty += plan.dirty_bytes
+                    continue
+                # host bytes once (a tensor region is copied here, not again
+                # at serialize), with the on-disk dtype name
+                arr, dtype = fmt.host_array(r.array)
+                r.array, r.dtype = arr, r.dtype or dtype
+                prev = None if want_full else t.fps.get(r.name)
+                if prev is None:
+                    new_fps[r.name] = dlt.fingerprints(arr, self.chunk_bytes)
+                    total += arr.nbytes
+                    dirty += arr.nbytes
+                    continue
+                patch, fp = dlt.make_patch(
+                    arr, prev, chunk_bytes=self.chunk_bytes,
+                    base_version=t.last_version, dtype=r.dtype)
+                new_fps[r.name] = fp
+                patches[r.name] = patch
+                total += patch.nbytes
+                dirty += len(patch.data)
+            ratio = dirty / total if total else 1.0
+            if want_full or ratio > self.max_dirty_ratio:
+                for r in ctx.regions:
+                    r.patch = None
+                for name, (r, plan, cap) in plans.items():
+                    r.array, r.dtype = cap.materialize(plan), plan.dtype
+                    new_fps[name] = cap.host_fp(plan)
+                    cap.commit(plan)
+                ctx.meta["delta"] = {"kind": "full"}
+                t.note_full(ctx.version, new_fps)
+                ctx.results["delta_kind"] = "full"
+            else:
+                for r in ctx.regions:
+                    if r.name in plans:
+                        continue
+                    p = patches.get(r.name)
+                    # fully-dirty regions encode raw (no table overhead)
+                    r.patch = None if p is None or \
+                        len(p.indices) >= p.n_chunks else p
+                for name, (r, plan, cap) in plans.items():
+                    if plan.full or len(plan.dirty_idx) >= plan.rows:
+                        # first version / reshard fallback / fully dirty:
+                        # ship the whole region, encode raw
+                        r.array = cap.materialize(plan)
+                        r.dtype = plan.dtype
+                        r.patch = None
+                        new_fps[name] = cap.host_fp(plan)
+                    else:
+                        diff = cap.gather(plan)
+                        r.patch, new_fps[name] = dlt.make_patch(
+                            None, None, chunk_bytes=self.chunk_bytes,
+                            base_version=t.last_version, precomputed=diff)
+                    cap.commit(plan)
+                ctx.meta["delta"] = {
+                    "kind": "delta", "parent": t.last_version,
+                    "base": t.base_version, "chain_len": t.chain_len + 1}
+                t.note_delta(ctx.version, new_fps)
+                ctx.results["delta_kind"] = "delta"
+            ctx.results["delta_dirty_bytes"] = dirty
+            ctx.results["delta_total_bytes"] = total
+            ctx.results["delta_dirty_ratio"] = round(ratio, 4)
+            if plans:
+                ctx.results["delta_device_regions"] = len(plans)
         return "ok"
 
 

@@ -165,9 +165,10 @@ class PipelineSpec:
     #: run auto-compaction (and the follow-up parity refresh) in the
     #: backend's maintenance lane instead of inline in checkpoint_end
     compact_async: bool = False
-    #: device-side dirty tracking (fingerprint-diff protected tensors in
-    #: device memory, gather only dirty chunks).  Not ported yet: ``compile``
-    #: refuses it, like the "delta" module it requires.
+    #: device-side dirty tracking: fingerprint-diff protected tensors in
+    #: device memory (fused kernel pass) and gather only dirty chunks to the
+    #: host.  Requires the "delta" module (the diff needs a tracker/chain to
+    #: land in); host-resident leaves fall back to the host path.
     device_delta: bool = False
     #: min seconds between maintenance-lane task starts (rate limit)
     maintenance_interval_s: float = 0.0
@@ -214,11 +215,23 @@ class PipelineSpec:
         mode (None runs the full pipeline inline)."""
         from repro_torch.core.engine import Engine
 
-        if self.device_delta or \
-                any(ms.name == "delta" for ms in self.modules):
-            raise NotImplementedError(
-                "delta checkpointing (the \"delta\" module, device_delta) "
-                "is not ported yet: ROADMAP.md queue 1, items 4-5")
+        if self.device_delta and \
+                not any(ms.name == "delta" for ms in self.modules):
+            # device capture produces PrecomputedDiffs; only DeltaModule
+            # turns them into patches — without it they'd silently become
+            # full materializations every step.
+            raise ValueError(
+                'device_delta=True requires the "delta" module')
+        if any(ms.name == "delta" for ms in self.modules):
+            enc = (self.module_options("serialize") or {}).get("encoding",
+                                                               "raw")
+            if enc == "q8":
+                # a lossy base can never satisfy a delta overlay's digests:
+                # untouched chunks decode differently from what was hashed,
+                # so every chain restore would fail and fall back.
+                raise ValueError(
+                    'the "delta" module requires a lossless serialize '
+                    'encoding (raw or zlib), not "q8"')
         if self.aggregate and self.module_options("flush") is None:
             # the flush stage seals the batch; without it staged entries
             # (manifests, parity) would never reach stable storage.

@@ -1,6 +1,6 @@
 """Public wrappers over the port's kernels: the primitives the VELOC modules
-call (integrity digests, L2 erasure parity), with the public names of the
-JAX package's ``repro.kernels.ops``.
+call (integrity digests, L2 erasure parity, delta dirty tracking), with the
+public names of the JAX package's ``repro.kernels.ops``.
 
 Device rule: host bytes (``bytes``, numpy arrays, CPU tensors) are copied to
 the package's device before the kernel runs, as ``jnp.asarray`` moves them
@@ -11,19 +11,25 @@ raises when there is no GPU or a kernel fails to build or launch.  Only the
 
 Results are byte-identical to the JAX package's: digests fold the same
 per-row table, and the only padding is the last partial 2048-word row of a
-checksum (zero rows fold as the identity, ``fold_digest``).
+checksum (zero rows fold as the identity, ``fold_digest``).  Block
+fingerprints hash a ragged last chunk as if it were zero-padded, as the JAX
+package pads it, but the kernels read the words in place: no leaf is copied
+to pad it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import blockhash as _bh
 from repro_torch.kernels import checksum as _ck
+from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import xor_parity as _xp
 
 #: Lifetime kernel-dispatch counters (benchmarks and tests read deltas to
 #: assert batching actually collapses per-chunk dispatches into one).
-KERNEL_DISPATCHES = {"checksum": 0, "xor_reduce": 0}
+KERNEL_DISPATCHES = {"checksum": 0, "xor_reduce": 0, "blockhash": 0,
+                     "gather": 0}
 
 _device = torch.device("cuda")
 
@@ -40,6 +46,12 @@ def set_device(device) -> None:
 
 def get_device() -> torch.device:
     return _device
+
+
+def _on_device(t: torch.Tensor) -> bool:
+    """Whether ``t`` already lies on the package's device ("cuda" matches
+    any CUDA device: the wrappers launch on the tensor's own)."""
+    return t.device.type == _device.type
 
 
 def _words_tensor(words) -> torch.Tensor:
@@ -86,7 +98,7 @@ def xor_reduce(x) -> np.ndarray:
         return np.zeros((0,), np.uint32)
     _check_device()
     KERNEL_DISPATCHES["xor_reduce"] += 1
-    if src.device == _device and (_device.type == "cpu" or (
+    if _on_device(src) and (_device.type == "cpu" or (
             src.stride(1) == 1 and src.stride(0) % 4 == 0
             and src.data_ptr() % 16 == 0)):
         dev = src
@@ -114,7 +126,7 @@ def fletcher_chunks(words, chunk: int = _ck.CHUNK_WORDS) -> np.ndarray:
     KERNEL_DISPATCHES["checksum"] += 1
     rows = -(-n // chunk)
     total = rows * chunk
-    if src.device == _device and total == n and (
+    if _on_device(src) and total == n and (
             _device.type == "cpu" or src.data_ptr() % 16 == 0):
         dev = src
     else:
@@ -176,3 +188,91 @@ def chunk_digests(blobs) -> list[str]:
             out[j] = fold_digest(table[slot * rows:(slot + 1) * rows],
                                  words_of[j].shape[0])
     return out
+
+
+# ---------------------------------------------------------------------------
+# block fingerprints (incremental-checkpoint dirty detection)
+# ---------------------------------------------------------------------------
+
+
+def _check_chunk_bytes(chunk_bytes: int):
+    if chunk_bytes <= 0 or chunk_bytes % 4:
+        raise ValueError(f"chunk_bytes must be a positive multiple of 4, "
+                         f"got {chunk_bytes}")
+
+
+def block_fingerprints(buf: bytes | np.ndarray,
+                       chunk_bytes: int = 4 * _ck.CHUNK_WORDS) -> np.ndarray:
+    """Per-chunk mixed fingerprints of a byte buffer: (n_chunks, 2) uint32,
+    on the host.
+
+    ``chunk_bytes`` must be a multiple of 4; the trailing partial chunk
+    hashes as if zero-padded (same rule as the delta encoder, so
+    fingerprints of the same logical chunk always agree).  The bytes are
+    copied to the device once, unpadded."""
+    _check_chunk_bytes(chunk_bytes)
+    words = bytes_to_u32(buf)
+    if words.shape[0] == 0:
+        return np.zeros((0, 2), np.uint32)
+    _check_device()
+    KERNEL_DISPATCHES["blockhash"] += 1
+    dev = _words_tensor(words).to(_device)
+    return _bh.blockhash(dev, chunk_bytes // 4).cpu().numpy().view(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# device-side dirty tracking (fused fingerprint-diff + gather, in device
+# memory)
+# ---------------------------------------------------------------------------
+
+
+def device_words(x: torch.Tensor, chunk_bytes: int):
+    """The uint32 words of a tensor's bytes, as the fingerprint kernels read
+    them, without leaving its device: ``(words, n_words, rows)`` with
+    ``words`` a flat int32 tensor of ``n_words`` words (a view of ``x`` for
+    4-byte dtypes) and ``rows`` the chunk count.
+
+    Bit-identical to ``bytes_to_u32`` of the host bytes: 1- and 2-byte
+    dtypes are viewed as their little-endian bytes, zero-padded to a whole
+    word (a copy only then), and viewed as words — the JAX package's
+    shift-combine (``repro.kernels.ops._device_words_j``).  The ragged last
+    chunk is not padded: the kernels hash its missing words as zeros."""
+    _check_chunk_bytes(chunk_bytes)
+    flat = x.detach().contiguous().reshape(-1)
+    nbytes = flat.numel() * flat.element_size()
+    n_words = -(-nbytes // 4)
+    rows = -(-n_words // (chunk_bytes // 4))
+    if flat.element_size() == 4:
+        return flat.view(torch.int32), n_words, rows
+    b = flat.view(torch.uint8)
+    pad = (-nbytes) % 4
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad)])
+    return b.view(torch.int32), n_words, rows
+
+
+def device_fingerprints(words: torch.Tensor, chunk: int = None
+                        ) -> torch.Tensor:
+    """Block fingerprints (rows, 2) of device words (flat with ``chunk``, or
+    (rows, chunk)); the result STAYS on the device (same kernel and values
+    as ``block_fingerprints``, no copy to the host)."""
+    KERNEL_DISPATCHES["blockhash"] += 1
+    return _bh.blockhash(words, chunk)
+
+
+def fingerprint_diff(words: torch.Tensor, prev_fp: torch.Tensor,
+                     chunk: int = None):
+    """Fused fingerprint + dirty detection in one pass: returns
+    ``(new_fp (rows, 2), dirty (rows, 1))``, both on the device; neither
+    fingerprint input leaves it.  Only the chunk-sized dirty mask (and
+    whatever chunks it selects) needs to cross to the host."""
+    KERNEL_DISPATCHES["blockhash"] += 1
+    return _bh.blockhash_diff(words, prev_fp, chunk)
+
+
+def gather_rows(words: torch.Tensor, idx, chunk: int = None) -> torch.Tensor:
+    """Device-side compaction: pack the selected chunk rows contiguously,
+    so the following device-to-host copy moves ``len(idx)`` chunks instead
+    of the whole region.  ``idx`` are host row indices."""
+    KERNEL_DISPATCHES["gather"] += 1
+    return _ga.gather_rows(words, idx, chunk)

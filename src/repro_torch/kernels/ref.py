@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels.
 
-The wrappers in ``checksum.py`` and ``xor_parity.py`` run these for tensors
-that lie on the CPU, and tests compare the CUDA kernels with them on the
-card.  Words are uint32 values held in int32 tensors (the same bits);
-PyTorch's uint32 has no shifts or sums on the CPU, so the checksum sums in
-int64 and masks to 32 bits: the largest sum, over a 2048-word row, is below
-2**54, so it is exact.
+The wrappers in ``checksum.py``, ``xor_parity.py``, ``blockhash.py`` and
+``gather.py`` run these for tensors that lie on the CPU, and tests compare
+the CUDA kernels with them on the card.  Words are uint32 values held in
+int32 tensors (the same bits); PyTorch's uint32 has no shifts or sums on the
+CPU, so the arithmetic runs in int64 on values masked to 32 bits.  The
+checksum's largest sum, over a 2048-word row, is below 2**54, so it is exact.
+The block hash multiplies two 32-bit values, whose product can reach 2**64
+and overflow int64, so ``_mul32`` splits the multiplier into 16-bit halves:
+every partial product stays below 2**48.
 """
 from __future__ import annotations
 
@@ -45,3 +48,48 @@ def xor_reduce_ref(x: torch.Tensor) -> torch.Tensor:
     for k in range(1, x.shape[0]):
         out ^= x[k]
     return out
+
+
+_MIX1 = 0x9E3779B1
+_MIX2 = 0x85EBCA77
+_MIX3 = 0xC2B2AE3D
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2**32`` for int64 values in [0, 2**32): ``b`` is split
+    into 16-bit halves, so no partial product overflows int64."""
+    lo, hi = b & 0xFFFF, b >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK
+
+
+def blockhash_ref(x: torch.Tensor) -> torch.Tensor:
+    """x: (n_chunks, chunk) words -> (n_chunks, 2) int32 holding the uint32
+    fingerprint pair of each row: per word the avalanche
+    ``y = mix(x)``, then ``h1 = sum(y * (2i+1))`` and
+    ``h2 = sum((y ^ w2) * w2)`` with ``w2 = ((i+1) * 0xC2B2AE3D) | 1``, all
+    mod 2**32 (``repro.kernels.checksum._blockhash_rows``)."""
+    w = _as_i32(x).to(torch.int64) & _MASK
+    i = torch.arange(w.shape[1], dtype=torch.int64, device=w.device)
+    y = _mul32(w ^ (w >> 15), _MIX1)
+    y = _mul32(y ^ (y >> 13), _MIX2)
+    y = y ^ (y >> 16)
+    w1 = (2 * i + 1) & _MASK
+    w2 = _mul32(i + 1, _MIX3) | 1
+    h1 = _mul32(y, w1).sum(dim=1) & _MASK
+    h2 = _mul32(y ^ w2, w2).sum(dim=1) & _MASK
+    return _to_u32_bits(torch.stack([h1, h2], dim=1))
+
+
+def blockhash_diff_ref(x: torch.Tensor, prev: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (n, chunk) words, prev: (n, 2) words -> (fp (n, 2) int32,
+    dirty (n, 1) int32 0/1 where the fingerprint differs from ``prev``)."""
+    fp = blockhash_ref(x)
+    dirty = (fp != _as_i32(prev)).any(dim=1, keepdim=True)
+    return fp, dirty.to(torch.int32)
+
+
+def gather_rows_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: (n, chunk), idx: (n_out,) -> (n_out, chunk),
+    ``out[j] = x[idx[j]]``."""
+    return x[idx.to(torch.int64)]

@@ -82,6 +82,8 @@ def test_cuda_device_without_gpu_raises():
         ops.digest(b"x")
     with pytest.raises(RuntimeError, match="no GPU"):
         ops.xor_reduce(torch.ones((2, 3), dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ops.block_fingerprints(b"x" * 8, 4)
     assert ops.digest(b"") == "000000000000000000000000"  # nothing to launch
 
 
