@@ -35,21 +35,39 @@ any failure (the script then exits non-zero):
      v5 L3 shard is deleted, and rank 2 rebuilds v5 from XOR parity plus its
      chain — each equal to the live state.  Then a short host-delta run
      (one rank, ``device_delta=False``, v1 plus one 1% version);
-  5. each kernel against its plain PyTorch version on the card, bit-exact,
+  5. the q8 path: the same state and ranks under
+     ``VelocConfig(mode="async", encoding="q8")`` (partner, XOR group 4,
+     L3 flush).  Checkpoint v1, drain, every rank's ``restart_latest``:
+     each float leaf of at least 1024 elements equals the q8 round trip of
+     the plain versions on the card and lies within half a scale step of
+     the live leaf, every other leaf equals it.  Per rank it prints the
+     shard bytes beside the raw bytes; then node loss and the parity
+     rebuild of rank 2, equal to its q8 restore;
+  6. the device L2 ring: four slots on the card, each leaf split in 4 along
+     its first axis where that divides by 4, else whole;
+     ``core.partner.encode_l2`` in partner mode (slot g holds slot g-1's
+     padded buffer) and in xor mode (12 XOR-pair launches; each slot's
+     stripe equals the host oracle, and slot 2 is rebuilt from the
+     survivors and the parity);
+  7. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
      checksum rows; the XOR group's words in the aligned row layout of
      ``ops.xor_reduce``; the largest leaf's and the 0-d ``opt/step`` leaf's
      words in 64 KiB rows for the block hash and its fused diff; the dirty
-     rows of a 1% version of the largest leaf for the gather), with the
-     kernel's median time from CUDA events, its bound and the plain
-     version's time; the gather kernel alone on an index already on the
-     card, beside ``torch.index_select`` on that index and the whole
-     wrapper (host checks and the index copy included); and the
-     host-to-device copy of a shard-sized buffer next to the checksum
-     kernel that digests it;
-  6. a ``{"kernels": [...]}`` line: each kernel's launches on its path
-     (counts set to 0 just before each path), times, bound and error;
-  7. as the last line, ``{"ok": true, "device": {...}}``.
+     rows of a 1% version of the largest leaf for the gather; the largest
+     leaf's values for quantize and dequantize, and ragged, misaligned,
+     NaN, ±inf, all-zero and f16 blocks; the ring's stripe for the XOR
+     pair, and ragged and misaligned words), with the kernel's median time
+     from CUDA events, its bound, the plain version's time and, where one
+     PyTorch call computes the same function, that call's time; the gather
+     kernel alone on an index already on the card, beside
+     ``torch.index_select`` on that index and the whole wrapper (host
+     checks and the index copy included); and the host-to-device copy of a
+     shard-sized buffer next to the checksum kernel that digests it;
+  8. a ``{"kernels": [...]}`` line: each kernel's launches on its path and
+     on every path (counts set to 0 just before each path), times, bound
+     and error;
+  9. as the last line, ``{"ok": true, "device": {...}}``.
 
 ``--trace DIR`` also records the checkpoint calls and the drain with
 ``torch.profiler`` (``DIR/trace.json.gz``) and runs a probe thread that
@@ -83,20 +101,25 @@ def _card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def _cuda_ms(torch, fn, reps: int, warmup: int = 2, runs: int = 5) -> float:
+    """Milliseconds per call of ``fn`` on the current stream: the median
+    over ``runs`` of ``reps`` calls queued back to back between two CUDA
+    events.  Queued so, the device runs one call after another without
+    waiting for the host, unless the host takes longer to issue a call than
+    the device takes to run it; then it is the host's rate of issue."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -116,7 +139,7 @@ def _max_abs_err(torch, a, b) -> int:
 
 
 def check_kernels(torch, gen, shard_rows: int, xor_words: int) -> dict:
-    """Phase 4: every kernel against its plain version, bit-exact, at small
+    """Phase 7: every kernel against its plain version, bit-exact, at small
     shapes and at the main path's ``shard_rows`` and ``xor_words``."""
     import numpy as np
 
@@ -195,19 +218,25 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int) -> dict:
 
 
 def _check_exact(torch, what: str, got, want) -> int:
+    """Bit-exact comparison of tensors or tuples of them; float tensors are
+    compared by their bits (NaN included).  Returns the largest absolute
+    difference of the integer values or float bits."""
     torch.cuda.synchronize()
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
-    err = max(_max_abs_err(torch, g, w) for g, w in zip(got, want))
-    if not all(g.shape == w.shape and torch.equal(g, w)
-               for g, w in zip(got, want)):
+    bits = [(g.view(torch.int32), w.view(torch.int32))
+            if g.dtype == w.dtype == torch.float32 else (g, w)
+            for g, w in zip(got, want)]
+    err = max(_max_abs_err(torch, g, w) for g, w in bits)
+    if not all(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in bits):
         raise AssertionError(f"{what}: kernel != plain (max abs err {err})")
     return err
 
 
 def check_delta_kernels(torch, gen, big_words: int, step_words: int,
                         dirty_rows: int, chunk: int) -> dict:
-    """Phase 5 for the delta path's kernels: block hash, fused hash-diff
+    """Phase 7 for the delta path's kernels: block hash, fused hash-diff
     and row gather against their plain versions, bit-exact, at small,
     ragged and misaligned shapes and at the path's own: the largest leaf's
     ``big_words`` words and the 0-d ``opt/step`` leaf's ``step_words`` in
@@ -727,6 +756,293 @@ def host_delta_path(torch, leaves, state, scratch: Path, seed: int) -> dict:
     return {"versions": out}
 
 
+def _plain_quantize(torch, x):
+    """The plain quantize of ``n`` flat float values on their device:
+    zero-padded to whole 256-value blocks, as the JAX package pads them."""
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    n = x.numel()
+    padded = torch.zeros(qz.blocks(n) * qz.BLOCK_SIZE, device=x.device)
+    padded[:n] = x
+    return ref.quantize_ref(padded.view(-1, qz.BLOCK_SIZE))
+
+
+def _q8_expected(torch, leaf):
+    """What a q8 restore of ``leaf`` must give, from the plain versions on
+    the card, and the per-element bound of its error: half the block's
+    scale, plus the two roundings (the division, the product) at most
+    2 * 127 * 2**-24 of it."""
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    n = leaf.numel()
+    q, s = _plain_quantize(torch, leaf.detach().reshape(-1).float())
+    want = ref.dequantize_ref(q, s).reshape(-1)[:n]
+    bound = (s.double() * (0.5 + 2.0 ** -16)).repeat_interleave(
+        qz.BLOCK_SIZE)[:n]
+    return want.reshape(leaf.shape).to(leaf.dtype), bound
+
+
+def _assert_q8_restore(torch, got: dict, live: dict, what: str) -> int:
+    """Each float leaf of at least 1024 elements equal to the plain q8
+    round trip and within its bound of the live leaf; every other leaf
+    equal to the live one.  Returns the count of quantized leaves."""
+    if sorted(got) != sorted(live):
+        raise AssertionError(f"{what}: leaf names differ")
+    quantized = 0
+    for k, t in live.items():
+        g = got[k]
+        if g.device != t.device or g.dtype != t.dtype:
+            raise AssertionError(f"{what}: leaf {k!r} device or dtype")
+        if not (t.is_floating_point() and t.numel() >= 1024):
+            if not torch.equal(g, t):
+                raise AssertionError(f"{what}: raw leaf {k!r} differs")
+            continue
+        want, bound = _q8_expected(torch, t)
+        if not torch.equal(g.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{what}: leaf {k!r} != the plain q8 round "
+                                 f"trip")
+        err = (g.double() - t.double()).abs().reshape(-1)
+        if bool((err > bound).any()):
+            raise AssertionError(f"{what}: leaf {k!r} off by more than half "
+                                 f"a scale step ({float(err.max())})")
+        quantized += 1
+    return quantized
+
+
+def q8_path(torch, ranks, load, scratch: Path) -> dict:
+    """Phase 5, the q8 path: ``VelocConfig(mode="async", encoding="q8")``
+    over the full state and the 4 ranks: checkpoint v1, drain, every
+    rank's restart, then node loss and the parity rebuild of rank 2."""
+    from repro_torch.core import Cluster, VelocClient, VelocConfig
+    from repro_torch.core import format as fmt
+
+    vcfg = VelocConfig(mode="async", encoding="q8", scratch=str(scratch))
+    cluster = Cluster(vcfg, nranks=NRANKS)
+    clients = [VelocClient(vcfg, cluster, rank=r) for r in range(NRANKS)]
+    try:
+        t0 = time.perf_counter()
+        futs = [c.checkpoint(ranks[r], version=1)
+                for r, c in enumerate(clients)]
+        t_sub = time.perf_counter()
+        for c in clients:
+            if not c.wait(timeout=900):
+                raise AssertionError("q8 pipeline did not drain in 900 s")
+        drain = time.perf_counter() - t_sub
+        for f in futs:
+            if f.module_errors:
+                raise AssertionError(f"q8 module errors: {f.module_errors}")
+        shard_bytes = [len(cluster.fetch_shard(vcfg.name, 1, r))
+                       for r in range(NRANKS)]
+        print(f"q8 v1: submit {t_sub - t0:.3f} s, drain {drain:.3f} s; per "
+              f"rank shard bytes / raw bytes / ratio: " + "; ".join(
+                  f"{b} / {raw} / {raw / b:.4f}x"
+                  for b, raw in zip(shard_bytes, load)))
+        restart_s, quantized = [], 0
+        for r, c in enumerate(clients):
+            t1 = time.perf_counter()
+            version, got = c.restart_latest(ranks[r])
+            torch.cuda.synchronize()
+            restart_s.append(time.perf_counter() - t1)
+            if version != 1:
+                raise AssertionError(f"q8 rank {r} restored v{version}: "
+                                     f"{c.restart_diagnostics}")
+            quantized += _assert_q8_restore(torch, got, ranks[r],
+                                            f"q8 rank {r} restart")
+        print(f"q8 restart_latest per rank (s): "
+              f"{[round(x, 3) for x in restart_s]}; {quantized} quantized "
+              f"leaves equal to the plain q8 round trip and within half a "
+              f"scale step, the rest equal")
+
+        cluster.fail_node(2)
+        cluster.fail_node(3)
+        for t in cluster.external_tiers:
+            t.delete(fmt.shard_key(vcfg.name, 1, 2))
+        if cluster.fetch_shard(vcfg.name, 1, 2) is not None or \
+                cluster.fetch_partner_copy(vcfg.name, 1, 2, 1) is not None:
+            raise AssertionError("q8: rank 2's shard survived the node loss")
+        t1 = time.perf_counter()
+        version, got = clients[2].restart_latest(ranks[2])
+        torch.cuda.synchronize()
+        parity_s = time.perf_counter() - t1
+        if version != 1:
+            raise AssertionError(
+                f"q8 rank 2 after node loss restored v{version}: "
+                f"{clients[2].restart_diagnostics}")
+        _assert_q8_restore(torch, got, ranks[2], "q8 rank 2 parity rebuild")
+        print(f"q8 node loss: rank 2 rebuilt from XOR parity in "
+              f"{parity_s:.3f} s, equal to its q8 restore")
+    finally:
+        for c in clients:
+            c.shutdown()
+    return dict(drain_s=drain, restart_s=restart_s, parity_s=parity_s,
+                shard_bytes=shard_bytes, raw_bytes=list(load))
+
+
+def ring_slots(torch, leaves):
+    """Four slots on the card: each leaf split in 4 along its first axis
+    where that divides by 4 (``P("data", ...)``), else whole (replicated)."""
+    slots = [dict() for _ in range(NRANKS)]
+    for name, t in leaves:
+        split = t.dim() > 0 and t.shape[0] % NRANKS == 0
+        k = t.shape[0] // NRANKS if split else 0
+        for g in range(NRANKS):
+            slots[g][name] = t[g * k:(g + 1) * k] if split else t
+    return slots
+
+
+def ring_path(torch, leaves) -> dict:
+    """Phase 6, the device L2 ring over 4 slots of the full state on the
+    card: partner mode (slot g holds slot g-1's padded buffer), then xor mode
+    (each slot's stripe against the host oracle; slot 2 rebuilt from the
+    survivors and the parity)."""
+    import numpy as np
+
+    from repro_torch.core import partner as pt
+    from repro_torch.kernels import xor_parity as xp
+
+    slots = ring_slots(torch, leaves)
+    bufs = [pt._pad_to(pt.flatten_local_u32(s), 1024) for s in slots]
+    t0 = time.perf_counter()
+    out = pt.encode_l2(slots, mode="partner")
+    torch.cuda.synchronize()
+    partner_s = time.perf_counter() - t0
+    for g in range(NRANKS):
+        if not torch.equal(out[g], bufs[(g - 1) % NRANKS]):
+            raise AssertionError(f"ring partner: slot {g} does not hold slot "
+                                 f"{(g - 1) % NRANKS}'s buffer")
+    del out
+    before = xp.PAIR_LAUNCHES.value
+    t0 = time.perf_counter()
+    par = pt.encode_l2(slots, mode="xor")
+    torch.cuda.synchronize()
+    xor_s = time.perf_counter() - t0
+    steps = xp.PAIR_LAUNCHES.value - before
+    if steps != NRANKS * (NRANKS - 1):
+        raise AssertionError(f"ring xor: {steps} xor_pair launches, not "
+                             f"{NRANKS * (NRANKS - 1)}")
+    host = [b.cpu().numpy().view(np.uint32) for b in bufs]
+    stripes = [p.cpu().numpy().view(np.uint32) for p in par]
+    t0 = time.perf_counter()
+    want = pt.ring_xor_parity_ref(host)
+    for g in range(NRANKS):
+        if not np.array_equal(stripes[g], want[g]):
+            raise AssertionError(f"ring xor: slot {g}'s stripe != the host "
+                                 f"oracle")
+    lost = 2
+    rebuilt = pt.xor_reconstruct_group(
+        {g: host[g] for g in range(NRANKS) if g != lost},
+        {g: stripes[g] for g in range(NRANKS) if g != lost}, lost, NRANKS,
+        len(host[lost]))
+    if not np.array_equal(rebuilt, host[lost]):
+        raise AssertionError("ring xor: slot 2 not rebuilt from the "
+                             "survivors and the parity")
+    oracle_s = time.perf_counter() - t0
+    words, c = int(bufs[0].numel()), int(par[0].numel())
+    print(f"ring path: 4 slots of {words} words each on the card; partner "
+          f"mode {partner_s:.3f} s, every slot holds its predecessor's "
+          f"buffer; xor mode {xor_s:.3f} s ({steps} xor_pair launches), "
+          f"stripes of {c} words equal to the host oracle; slot 2 rebuilt "
+          f"from the survivors and the parity (host oracle "
+          f"{oracle_s:.3f} s)")
+    return dict(slot_words=words, stripe_words=c, partner_s=partner_s,
+                xor_s=xor_s, oracle_s=oracle_s)
+
+
+def check_q8_ring_kernels(torch, gen, big_n: int, stripe_words: int) -> dict:
+    """Phase 7 for the q8 and ring kernels: quantize, dequantize and
+    xor_pair against their plain versions, bit for bit, at small, ragged
+    and misaligned shapes, at NaN, ±inf, all-zero and f16 blocks, and at
+    the paths' own: the largest leaf's ``big_n`` values and the ring's
+    stripe of ``stripe_words`` words."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import xor_parity as xp
+
+    stats, errs = {}, {"quantize": [], "dequantize": [], "xor_pair": []}
+    special = torch.randn(7 * 256, generator=gen, device="cuda")
+    special[256 + 7] = float("nan")
+    special[3 * 256:4 * 256] = 0
+    special[5 * 256 + 9] = float("inf")
+    special[6 * 256 + 1] = float("-inf")
+    cases = [("path", torch.randn(big_n, generator=gen, device="cuda") * 3),
+             ("1 value", torch.randn(1, generator=gen, device="cuda")),
+             ("255 values", torch.randn(255, generator=gen, device="cuda")),
+             ("ragged 3*256+77",
+              torch.randn(3 * 256 + 77, generator=gen, device="cuda") * 50),
+             ("misaligned", torch.randn(1001 + 1, generator=gen,
+                                        device="cuda")[1:]),
+             ("NaN, zero, +-inf blocks", special),
+             ("f16 input", (torch.randn(5000, generator=gen, device="cuda")
+                            * 8).half().float())]
+    for what, x in cases:
+        n = x.numel()
+        q, s = qz.quantize(x)
+        qr, sr = _plain_quantize(torch, x)
+        errs["quantize"].append(_check_exact(
+            torch, f"quantize {what} ({n})", (q, s), (qr, sr)))
+        errs["dequantize"].append(_check_exact(
+            torch, f"dequantize {what} ({n})", qz.dequantize(q, s, n),
+            ref.dequantize_ref(q, s).reshape(-1)[:n]))
+        if what != "path":
+            continue
+        rows = qz.blocks(n)
+        ms = _cuda_ms(torch, lambda: qz.quantize(x), reps=20)
+        plain_ms = _cuda_ms(torch, lambda: _plain_quantize(torch, x), reps=5)
+        bound = _bound_ms(4 * n + n + 4 * rows)
+        print(f"quantize ({n} values = {rows} blocks): bit-exact; kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms, plain {plain_ms:.4f} ms")
+        stats["quantize"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 library_ms=None, shape=[rows, 256])
+        d_ms = _cuda_ms(torch, lambda: qz.dequantize(q, s, n), reps=20)
+        d_plain = _cuda_ms(torch, lambda: ref.dequantize_ref(q, s), reps=5)
+        d_lib = _cuda_ms(torch, lambda: torch.mul(q, s[:, None]), reps=20)
+        d_bound = _bound_ms(n + 4 * rows + 4 * n)
+        print(f"dequantize ({rows} blocks): bit-exact; kernel {d_ms:.4f} ms, "
+              f"bound {d_bound:.4f} ms, plain {d_plain:.4f} ms, "
+              f"torch.mul(q, s[:, None]) {d_lib:.4f} ms")
+        stats["dequantize"] = dict(ms=d_ms, plain_ms=d_plain,
+                                   bound_ms=d_bound, library_ms=d_lib,
+                                   shape=[rows, 256])
+    for name in ("quantize", "dequantize"):
+        stats[name]["max_abs_err"] = max(errs[name])
+
+    for n, off in ((1, False), (1001, False), (4099, False),
+                   (stripe_words, False), (4099, True)):
+        base_a = _random_words(torch, gen, (n + 1,))
+        base_b = _random_words(torch, gen, (n + 1,))
+        a, b = (base_a[1:], base_b[1:]) if off else (base_a[:n], base_b[:n])
+        want = ref.xor_pair_ref(a, b)
+        if off:  # refused by the kernel's wrapper; ops copies it aligned
+            try:
+                xp.xor_pair(a, b)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("xor_pair launched on a misaligned base")
+            got = ops.xor_pair(a, b)
+        else:
+            got = xp.xor_pair(a, b)
+        errs["xor_pair"].append(_check_exact(
+            torch, f"xor_pair N={n}{' misaligned' if off else ''}", got,
+            want))
+        if n != stripe_words:
+            continue
+        ms = _cuda_ms(torch, lambda: xp.xor_pair(a, b), reps=20)
+        plain_ms = _cuda_ms(torch, lambda: ref.xor_pair_ref(a, b), reps=5)
+        lib_ms = _cuda_ms(torch, lambda: torch.bitwise_xor(a, b), reps=20)
+        bound = _bound_ms(12 * n)
+        print(f"xor_pair N={n}: bit-exact; kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ms, plain {plain_ms:.4f} ms, torch.bitwise_xor "
+              f"{lib_ms:.4f} ms")
+        stats["xor_pair"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 library_ms=lib_ms, shape=[n])
+    stats["xor_pair"]["max_abs_err"] = max(errs["xor_pair"])
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -752,11 +1068,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import gather as ga
     from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import xor_parity as xp
 
     counters = {"checksum": ck.LAUNCHES, "xor_reduce": xp.LAUNCHES,
                 "blockhash": bh.LAUNCHES, "blockhash_diff": bh.DIFF_LAUNCHES,
-                "gather_rows": ga.LAUNCHES}
+                "gather_rows": ga.LAUNCHES, "quantize": qz.LAUNCHES,
+                "dequantize": qz.DEQUANT_LAUNCHES,
+                "xor_pair": xp.PAIR_LAUNCHES}
 
     def run_path(name, kernels, fn):
         """Drive one path with every count at 0 just before it; fail if a
@@ -786,26 +1105,36 @@ def main(argv=None) -> int:
           + f"; wall {time.perf_counter() - t0:.2f} s")
 
     leaves, ranks, load = make_state(torch, args.seed)
-    path, dense_launches = run_path(
+    by_path = {}
+    path, by_path["main"] = run_path(
         "main path", ("checksum", "xor_reduce"),
         lambda: main_path(torch, leaves, ranks, scratch / "scratch",
                           trace=Path(args.trace) if args.trace else None))
     print(f"v2 shard is {path['shard_rows']} checksum rows, "
           f"{path['xor_words']} XOR words")
     shutil.rmtree(scratch / "scratch", ignore_errors=True)
-    delta, delta_launches = run_path(
-        "delta path", tuple(counters),
+    delta, by_path["delta"] = run_path(
+        "delta path", ("checksum", "xor_reduce", "blockhash",
+                       "blockhash_diff", "gather_rows"),
         lambda: delta_path(torch, leaves, ranks, load, scratch / "delta",
                            args.seed + 2))
     shutil.rmtree(scratch / "delta", ignore_errors=True)
     step = ranks_leaf(ranks, "opt/step")
     step_words = -(-step.numel() * step.element_size() // 4)
-    _, host_launches = run_path(
+    _, by_path["host_delta"] = run_path(
         "host-delta path", ("blockhash", "checksum"),
         lambda: host_delta_path(torch, list(ranks[0].items()), ranks[0],
                                 scratch / "host_delta", args.seed + 3))
     shutil.rmtree(scratch / "host_delta", ignore_errors=True)
     print(f"delta path {json.dumps(delta)}")
+    q8, by_path["q8"] = run_path(
+        "q8 path", ("quantize", "dequantize", "checksum", "xor_reduce"),
+        lambda: q8_path(torch, ranks, load, scratch / "q8"))
+    shutil.rmtree(scratch / "q8", ignore_errors=True)
+    print(f"q8 path {json.dumps(q8)}")
+    ring, by_path["ring"] = run_path(
+        "ring path", ("xor_pair",), lambda: ring_path(torch, leaves))
+    big_n = max(t.numel() for _, t in leaves)
     del leaves, ranks
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
@@ -814,29 +1143,33 @@ def main(argv=None) -> int:
     stats.update(check_delta_kernels(
         torch, gen, big_words=delta["big_words"], step_words=step_words,
         dirty_rows=delta["dirty_rows"], chunk=delta["chunk_words"]))
+    stats.update(check_q8_ring_kernels(
+        torch, gen, big_n=big_n, stripe_words=ring["stripe_words"]))
 
+    # kernel -> (source, TPU kernel it replaces, path whose launches count)
     src = {"checksum": ("src/repro_torch/csrc/checksum.cu",
-                        "src/repro/kernels/checksum.py:31", dense_launches),
+                        "src/repro/kernels/checksum.py:31", "main"),
            "xor_reduce": ("src/repro_torch/csrc/xor_parity.cu",
-                          "src/repro/kernels/xor_parity.py:28",
-                          dense_launches),
+                          "src/repro/kernels/xor_parity.py:28", "main"),
            "blockhash": ("src/repro_torch/csrc/blockhash.cu",
-                         "src/repro/kernels/checksum.py:84", delta_launches),
+                         "src/repro/kernels/checksum.py:84", "delta"),
            "blockhash_diff": ("src/repro_torch/csrc/blockhash.cu",
-                              "src/repro/kernels/checksum.py:115",
-                              delta_launches),
+                              "src/repro/kernels/checksum.py:115", "delta"),
            "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
-                           "src/repro/kernels/checksum.py:149",
-                           delta_launches)}
+                           "src/repro/kernels/checksum.py:149", "delta"),
+           "quantize": ("src/repro_torch/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:27", "q8"),
+           "dequantize": ("src/repro_torch/csrc/quantize.cu",
+                          "src/repro/kernels/quantize.py:50", "q8"),
+           "xor_pair": ("src/repro_torch/csrc/xor_parity.cu",
+                        "src/repro/kernels/xor_parity.py:51", "ring")}
     kernels = []
-    for name, (source, replaces, launches) in src.items():
+    for name, (source, replaces, home) in src.items():
         s = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_by_path": {"main": dense_launches[name],
-                                 "delta": delta_launches[name],
-                                 "host_delta": host_launches[name]},
+            "replaces": replaces, "launches": by_path[home][name],
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s.get("library_ms"),

@@ -3,13 +3,13 @@
 Shard layout:  [MAGIC 8B][header_len u64][header JSON][payload bytes...]
 The header's region table records (name, shape, dtype, offset, nbytes,
 digest, encoding) per protected region — the on-disk realization of the
-VELOC ``mem_protect`` declarations.  Encodings: "raw", "zlib" and "delta"
-(a region's dirty chunks against its parent version, repro_torch.core.delta);
-"q8" (block int8) is not ported yet and raises NotImplementedError.
-The bytes are identical to the JAX package's, so either package reads the
-other's checkpoints.  bfloat16 regions, which numpy cannot hold, travel as
-their 16-bit patterns with the dtype name "bfloat16" and read back as
-``torch.bfloat16`` tensors.
+VELOC ``mem_protect`` declarations.  Encodings: "raw", "zlib", "q8" (block
+int8 through the quantize kernel, for float regions of at least 1024
+values) and "delta" (a region's dirty chunks against its parent version,
+repro_torch.core.delta).  The bytes are identical to the JAX package's, so
+either package reads the other's checkpoints.  bfloat16 regions, which
+numpy cannot hold, travel as their 16-bit patterns with the dtype name
+"bfloat16" and read back as ``torch.bfloat16`` tensors.
 
 The manifest is the collective-commit record: shards are written first
 (atomic per-tier), then the manifest is published atomically; a checkpoint
@@ -68,10 +68,6 @@ class Region:
     capture: Any = None
 
 
-_NOT_PORTED_Q8 = ('the "q8" encoding is not ported yet (ROADMAP.md queue 1, '
-                  "item 6)")
-
-
 def dtype_name(dtype: torch.dtype) -> str:
     """The on-disk (numpy) name of a tensor dtype, as ``host_array`` writes
     it: "float32" for ``torch.float32``, "bfloat16" for ``torch.bfloat16``."""
@@ -107,8 +103,6 @@ def array_from_bytes(buf, dtype: str, shape) -> Any:
 
 def serialize_shard(regions: list[Region], meta: dict, *, encoding: str = "raw",
                     checksums: bool = True) -> bytes:
-    if encoding == "q8":
-        raise NotImplementedError(_NOT_PORTED_Q8)
     payload = io.BytesIO()
     table = []
     for r in regions:
@@ -153,7 +147,15 @@ def serialize_shard(regions: list[Region], meta: dict, *, encoding: str = "raw",
             "shard_count": r.shard_count,
             "encoding": encoding,
         }
-        if encoding == "zlib":
+        # a bfloat16 region is a uint16 array here (kind "u"), as it is an
+        # ml_dtypes array (kind "V") in the JAX package: neither quantizes
+        if encoding == "q8" and arr.dtype.kind == "f" and arr.size >= 1024:
+            q, s, n, _ = kops.quantize(arr)
+            blob = (np.int64(q.shape[0]).tobytes()
+                    + np.int64(q.shape[1]).tobytes() + q.tobytes()
+                    + s.tobytes())
+            entry["q8_n"] = int(n)
+        elif encoding == "zlib":
             blob = zlib.compress(arr.tobytes(), level=1)
         else:
             entry["encoding"] = "raw"
@@ -234,12 +236,18 @@ class ShardReader:
                     f"(restart walks the parent chain for you)")
             return _delta.overlay(base, self.read_patch(name, verify=verify),
                                   verify=verify)
-        if e["encoding"] == "q8":
-            raise NotImplementedError(_NOT_PORTED_Q8)
         blob = bytes(self._payload[e["offset"]:e["offset"] + e["nbytes"]])
         if verify and "digest" in e and kops.digest(blob) != e["digest"]:
             raise IOError(f"checksum mismatch in region {name!r}")
         shape = tuple(e["shape"])
+        if e["encoding"] == "q8":
+            r0 = int(np.frombuffer(blob[:8], np.int64)[0])
+            r1 = int(np.frombuffer(blob[8:16], np.int64)[0])
+            qb = r0 * r1
+            q = np.frombuffer(blob[16:16 + qb], np.int8).reshape(r0, r1)
+            s = np.frombuffer(blob[16 + qb:16 + qb + 4 * r0], np.float32)
+            return kops.dequantize(q, s, e["q8_n"], shape).astype(
+                np.dtype(e["dtype"]))
         if e["encoding"] == "zlib":
             blob = zlib.decompress(blob)
         return array_from_bytes(blob, e["dtype"], shape)

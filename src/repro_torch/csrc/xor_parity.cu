@@ -1,19 +1,22 @@
-// XOR parity over K data rows (VELOC L2 erasure encode and reconstruct) for
-// Hopper.
+// XOR parity over K data rows (VELOC L2 erasure encode and reconstruct) and
+// the pairwise XOR of the device-level L2 ring, for Hopper.
 //
-// Replaces the TPU kernel xor_reduce_pallas
+// veloc_xor_reduce replaces the TPU kernel xor_reduce_pallas
 // (src/repro/kernels/xor_parity.py:28): out[n] = x[0][n] ^ ... ^ x[K-1][n]
-// over uint32 words, rows `ld` words apart.
+// over uint32 words, rows `ld` words apart.  veloc_xor_pair replaces
+// xor_pair_pallas (xor_parity.py:51, _xor_pair_kernel :47): out = a ^ b, the
+// combiner of each step of the ring reduce-scatter in core/partner.py.
 //
-// Bound: device-memory bytes.  It reads 4*K*N bytes and writes 4*N, with one
-// XOR per word read.
+// Bound: device-memory bytes.  xor_reduce reads 4*K*N bytes and writes 4*N,
+// xor_pair reads 8*N and writes 4*N, with one XOR per word read.
 //
-// Design: the TPU kernel streams 1 MiB tiles of all K rows through VMEM in
+// Design: the TPU kernels stream 1 MiB tiles of all K rows through VMEM in
 // grid order; here a grid-stride loop spreads the word axis over every SM,
 // and each thread XORs the K rows of one 16-byte vector in registers, so the
-// K loads of an iteration are independent and in flight together.  The
-// caller lays the rows out 16-byte aligned (ld % 4 == 0); the last N % 4
-// words are a scalar tail.
+// K loads of an iteration are independent and in flight together; xor_pair
+// is the same loop over two separate rows.  The caller lays the rows out
+// 16-byte aligned (ld % 4 == 0; aligned a, b, out) and misaligned ones are
+// refused; the last N % 4 words are a scalar tail.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,6 +55,33 @@ xor_reduce_vec_kernel(const uint32_t* __restrict__ x,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+xor_pair_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                uint32_t* __restrict__ out, long long n) {
+  const long long nvec = n >> 2;
+  const long long tid = blockIdx.x * static_cast<long long>(kThreads)
+                        + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  const uint4* av = reinterpret_cast<const uint4*>(a);
+  const uint4* bv = reinterpret_cast<const uint4*>(b);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+#pragma unroll 4
+  for (long long v = tid; v < nvec; v += step) {
+    const uint4 p = __ldg(av + v);
+    const uint4 q = __ldg(bv + v);
+    ov[v] = make_uint4(p.x ^ q.x, p.y ^ q.y, p.z ^ q.z, p.w ^ q.w);
+  }
+  for (long long i = (nvec << 2) + tid; i < n; i += step) {
+    out[i] = __ldg(a + i) ^ __ldg(b + i);
+  }
+}
+
+long long grid_for(long long n) {
+  const long long work = (n >> 2) > 0 ? (n >> 2) : n;
+  const long long blocks = (work + kThreads - 1) / kThreads;
+  return blocks > kMaxBlocks ? kMaxBlocks : blocks;
+}
+
 }  // namespace
 
 // x: K rows of n uint32 words, row r at x + r*ld; out: n words.  k >= 1,
@@ -64,11 +94,25 @@ extern "C" int veloc_xor_reduce(const void* x, void* out, int k, long long n,
       || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long work = (n >> 2) > 0 ? (n >> 2) : n;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  xor_reduce_vec_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+  xor_reduce_vec_kernel<<<static_cast<unsigned int>(grid_for(n)), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), k, n, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, b, out: n uint32 words each, all 16-byte aligned (else
+// cudaErrorInvalidValue, nothing launched); n > 0.  Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int veloc_xor_pair(const void* a, const void* b, void* out,
+                              long long n, void* stream) {
+  if (n <= 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0
+      || reinterpret_cast<uintptr_t>(b) % 16 != 0
+      || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  xor_pair_kernel<<<static_cast<unsigned int>(grid_for(n)), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ from pathlib import Path
 from repro_torch.core import concurrency
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("checksum", "xor_parity", "blockhash", "gather_rows")
+KERNELS = ("checksum", "xor_parity", "blockhash", "gather_rows", "quantize")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,6 +1,7 @@
 """Public wrappers over the port's kernels: the primitives the VELOC modules
-call (integrity digests, L2 erasure parity, delta dirty tracking), with the
-public names of the JAX package's ``repro.kernels.ops``.
+call (integrity digests, L2 erasure parity and the device L2 ring, delta
+dirty tracking, q8 compression), with the public names of the JAX package's
+``repro.kernels.ops``.
 
 Device rule: host bytes (``bytes``, numpy arrays, CPU tensors) are copied to
 the package's device before the kernel runs, as ``jnp.asarray`` moves them
@@ -14,7 +15,9 @@ per-row table, and the only padding is the last partial 2048-word row of a
 checksum (zero rows fold as the identity, ``fold_digest``).  Block
 fingerprints hash a ragged last chunk as if it were zero-padded, as the JAX
 package pads it, but the kernels read the words in place: no leaf is copied
-to pad it.
+to pad it.  q8 codes and scales are bit-identical too: the quantize
+kernel reads a ragged last block's missing values as zeros, as the JAX
+package pads them.
 """
 from __future__ import annotations
 
@@ -24,12 +27,14 @@ import torch
 from repro_torch.kernels import blockhash as _bh
 from repro_torch.kernels import checksum as _ck
 from repro_torch.kernels import gather as _ga
+from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import xor_parity as _xp
 
 #: Lifetime kernel-dispatch counters (benchmarks and tests read deltas to
 #: assert batching actually collapses per-chunk dispatches into one).
-KERNEL_DISPATCHES = {"checksum": 0, "xor_reduce": 0, "blockhash": 0,
-                     "gather": 0}
+KERNEL_DISPATCHES = {"checksum": 0, "xor_reduce": 0, "xor_pair": 0,
+                     "blockhash": 0, "gather": 0, "quantize": 0,
+                     "dequantize": 0}
 
 _device = torch.device("cuda")
 
@@ -108,6 +113,38 @@ def xor_reduce(x) -> np.ndarray:
         dev.copy_(src)
     out = _xp.xor_reduce(dev)
     return out.cpu().numpy().view(np.uint32)
+
+
+def _aligned_on_device(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where it already lies on the package's device (16-byte aligned
+    on a CUDA device, for the kernels' vector loads), else an aligned copy
+    there."""
+    if _on_device(t) and (_device.type == "cpu" or (
+            t.is_contiguous() and t.data_ptr() % 16 == 0)):
+        return t
+    return t.to(_device, copy=True, memory_format=torch.contiguous_format)
+
+
+def xor_pair(a, b):
+    """a, b: (N,) uint32 words -> ``a ^ b``: the combiner of the device L2
+    ring (``core/partner.py``).  Tensors on the package's device stay there
+    and the result is a tensor on that device; host words (numpy arrays, CPU
+    tensors with a CUDA device) are copied to the device, and the result
+    comes back as they came: numpy for numpy, a CPU tensor for a CPU
+    tensor."""
+    host = not isinstance(a, torch.Tensor)
+    ta, tb = _words_tensor(a).reshape(-1), _words_tensor(b).reshape(-1)
+    if ta.shape != tb.shape:
+        raise ValueError(f"xor_pair: {tuple(ta.shape)} vs {tuple(tb.shape)}")
+    if ta.shape[0] == 0:
+        out = ta.new_empty((0,))
+    else:
+        _check_device()
+        KERNEL_DISPATCHES["xor_pair"] += 1
+        out = _xp.xor_pair(_aligned_on_device(ta), _aligned_on_device(tb))
+    if host:
+        return out.cpu().numpy().view(np.uint32)
+    return out.to(ta.device)
 
 
 # ---------------------------------------------------------------------------
@@ -276,3 +313,39 @@ def gather_rows(words: torch.Tensor, idx, chunk: int = None) -> torch.Tensor:
     of the whole region.  ``idx`` are host row indices."""
     KERNEL_DISPATCHES["gather"] += 1
     return _ga.gather_rows(words, idx, chunk)
+
+
+# ---------------------------------------------------------------------------
+# block quantization (compression module)
+# ---------------------------------------------------------------------------
+
+
+def quantize(x):
+    """x: any-shape float array (host array or tensor) -> ``(q int8 (rows,
+    256), scales f32 (rows,), n, shape)`` on the host, ``rows =
+    ceil(n / 256)``.  Values are cast to float32 on the device (as the JAX
+    package casts outside the kernel) and quantized there."""
+    if isinstance(x, torch.Tensor):
+        src = x.detach()
+    else:
+        src = torch.from_numpy(np.ascontiguousarray(x))
+    shape = tuple(src.shape)
+    flat = src.reshape(-1)
+    n = flat.shape[0]
+    _check_device()
+    KERNEL_DISPATCHES["quantize"] += 1
+    dev = flat.to(_device, dtype=torch.float32,
+                  memory_format=torch.contiguous_format)
+    q, s = _qz.quantize(dev)
+    return q.cpu().numpy(), s.cpu().numpy(), n, shape
+
+
+def dequantize(q, scales, n: int, shape) -> np.ndarray:
+    """Inverse of ``quantize``: ``(n,)`` float32 values ``q * s`` reshaped
+    to ``shape``, on the host."""
+    _check_device()
+    KERNEL_DISPATCHES["dequantize"] += 1
+    tq = torch.as_tensor(np.ascontiguousarray(q)).to(_device)
+    ts = torch.as_tensor(np.ascontiguousarray(scales)).to(_device)
+    out = _qz.dequantize(tq, ts, n)
+    return out.cpu().numpy().reshape(shape)

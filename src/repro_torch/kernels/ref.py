@@ -1,14 +1,14 @@
 """Plain PyTorch versions of the port's kernels.
 
-The wrappers in ``checksum.py``, ``xor_parity.py``, ``blockhash.py`` and
-``gather.py`` run these for tensors that lie on the CPU, and tests compare
-the CUDA kernels with them on the card.  Words are uint32 values held in
-int32 tensors (the same bits); PyTorch's uint32 has no shifts or sums on the
-CPU, so the arithmetic runs in int64 on values masked to 32 bits.  The
-checksum's largest sum, over a 2048-word row, is below 2**54, so it is exact.
-The block hash multiplies two 32-bit values, whose product can reach 2**64
-and overflow int64, so ``_mul32`` splits the multiplier into 16-bit halves:
-every partial product stays below 2**48.
+The wrappers in ``checksum.py``, ``xor_parity.py``, ``blockhash.py``,
+``gather.py`` and ``quantize.py`` run these for tensors that lie on the CPU,
+and tests compare the CUDA kernels with them on the card.  Words are uint32
+values held in int32 tensors (the same bits); PyTorch's uint32 has no shifts
+or sums on the CPU, so the arithmetic runs in int64 on values masked to 32
+bits.  The checksum's largest sum, over a 2048-word row, is below 2**54, so
+it is exact.  The block hash multiplies two 32-bit values, whose product can
+reach 2**64 and overflow int64, so ``_mul32`` splits the multiplier into
+16-bit halves: every partial product stays below 2**48.
 """
 from __future__ import annotations
 
@@ -93,3 +93,36 @@ def gather_rows_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x: (n, chunk), idx: (n_out,) -> (n_out, chunk),
     ``out[j] = x[idx[j]]``."""
     return x[idx.to(torch.int64)]
+
+
+def xor_pair_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (N,) words -> ``a ^ b``."""
+    return _as_i32(a) ^ _as_i32(b)
+
+
+#: float32(1/127): the JAX package's ``max(absmax, 1e-30) / 127.0`` is
+#: rewritten by XLA under ``jit`` into a multiply by this reciprocal, and the
+#: scales it writes differ from a true division by 1 ulp in ~2.5 % of blocks.
+#: The port multiplies, so its q8 shards are byte-identical.
+INV_127 = float.fromhex("0x1.020408p-7")
+
+
+def quantize_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (n, 256) float -> (q (n, 256) int8, scales (n,) float32), per row
+    ``s = max(absmax, 1e-30) * f32(1/127)``, ``q = clip(round(x / s), ±127)``
+    (round half to even).  A row holding a NaN gets scale NaN (the quiet NaN
+    ``0x7FC00000``) and codes 0; a row holding ±inf gets scale inf and codes
+    0 — both restore as NaN, as in the JAX package."""
+    x = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(x), dim=1)
+    s = torch.clamp(absmax, min=1e-30) * torch.tensor(
+        INV_127, dtype=torch.float32, device=x.device)
+    # one NaN bit pattern whatever the device's arithmetic makes of NaN
+    s = torch.where(torch.isnan(s), float("nan"), s)
+    q = torch.clamp(torch.round(x / s[:, None]), -127, 127)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), s
+
+
+def dequantize_ref(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """q: (n, 256) int8, s: (n,) float32 -> (n, 256) float32 ``q * s``."""
+    return q.to(torch.float32) * s[:, None]

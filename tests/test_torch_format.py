@@ -105,8 +105,14 @@ def test_reader_detects_corruption():
 
 
 def test_unported_encodings_raise():
-    with pytest.raises(NotImplementedError, match="q8"):
-        tfmt.serialize_shard(_port_regions("tensor"), META, encoding="q8")
+    """No encoding is refused any more: "q8" serializes byte-identically to
+    the JAX package (here its regions are all too small or not float, so
+    they stay raw) and reads back."""
+    blob = tfmt.serialize_shard(_port_regions("tensor"), META, encoding="q8")
+    assert blob == jfmt.serialize_shard(_jax_regions(), META, encoding="q8")
+    reader = tfmt.ShardReader(blob)
+    assert {e["encoding"] for e in reader.header["regions"]} == {"raw"}
+    np.testing.assert_array_equal(reader.read("f32"), _arrays()["f32"])
 
 
 def test_segment_pack_and_catalog_bytes_identical():

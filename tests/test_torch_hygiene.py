@@ -84,6 +84,11 @@ def test_cuda_device_without_gpu_raises():
         ops.xor_reduce(torch.ones((2, 3), dtype=torch.int32))
     with pytest.raises(RuntimeError, match="no GPU"):
         ops.block_fingerprints(b"x" * 8, 4)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ops.quantize(torch.ones(300))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ops.xor_pair(torch.ones(4, dtype=torch.int32),
+                     torch.ones(4, dtype=torch.int32))
     assert ops.digest(b"") == "000000000000000000000000"  # nothing to launch
 
 
