@@ -58,9 +58,10 @@ any failure (the script then exits non-zero):
      leaf's values for quantize and dequantize, and ragged, misaligned,
      NaN, ±inf, all-zero and f16 blocks; the ring's stripe for the XOR
      pair, and ragged and misaligned words), with the kernel's median time
-     from CUDA events, its bound, the plain version's time and, where one
-     PyTorch call computes the same function, that call's time; the gather
-     kernel alone on an index already on the card, beside
+     from CUDA events (each call's inputs evicted from L2 first, no wait
+     for the host; ``_cuda_ms``), its bound, the plain version's time and,
+     where one PyTorch call computes the same function, that call's time;
+     the gather kernel alone on an index already on the card, beside
      ``torch.index_select`` on that index and the whole wrapper (host
      checks and the index copy included); and the host-to-device copy of a
      shard-sized buffer next to the checksum kernel that digests it;
@@ -92,6 +93,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 NRANKS = 4
+L2_FLUSH_WORDS = 64 << 20  # 256 MiB of int32, five times the H100's 50 MB L2
+SPIN_CYCLES = 20_000_000  # ~10 ms of device time at the H100's clocks
 
 
 def _card_line() -> str:
@@ -101,26 +104,29 @@ def _card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(torch, fn, reps: int, warmup: int = 2, runs: int = 5) -> float:
-    """Milliseconds per call of ``fn`` on the current stream: the median
-    over ``runs`` of ``reps`` calls queued back to back between two CUDA
-    events.  Queued so, the device runs one call after another without
-    waiting for the host, unless the host takes longer to issue a call than
-    the device takes to run it; then it is the host's rate of issue."""
+def _cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn`` on the current stream, its inputs in
+    device memory and not in L2: the median over ``reps`` calls, each
+    between two CUDA events and each after a read of a 256 MiB buffer that
+    evicts whatever the call before left in L2 (a read leaves clean lines,
+    so the call pays no write-back of the flush).  A spin of the device
+    first lets the host queue every call before the device reaches it, so a
+    call's time holds no wait for the host unless ``fn`` itself waits for
+    the device (a copy from pageable memory); then the wait is its cost."""
+    flush = torch.empty(L2_FLUSH_WORDS, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for a, b in events:
+        torch.sum(flush)
         a.record()
-        for _ in range(reps):
-            fn()
+        fn()
         b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -756,18 +762,6 @@ def host_delta_path(torch, leaves, state, scratch: Path, seed: int) -> dict:
     return {"versions": out}
 
 
-def _plain_quantize(torch, x):
-    """The plain quantize of ``n`` flat float values on their device:
-    zero-padded to whole 256-value blocks, as the JAX package pads them."""
-    from repro_torch.kernels import quantize as qz
-    from repro_torch.kernels import ref
-
-    n = x.numel()
-    padded = torch.zeros(qz.blocks(n) * qz.BLOCK_SIZE, device=x.device)
-    padded[:n] = x
-    return ref.quantize_ref(padded.view(-1, qz.BLOCK_SIZE))
-
-
 def _q8_expected(torch, leaf):
     """What a q8 restore of ``leaf`` must give, from the plain versions on
     the card, and the per-element bound of its error: half the block's
@@ -777,7 +771,7 @@ def _q8_expected(torch, leaf):
     from repro_torch.kernels import ref
 
     n = leaf.numel()
-    q, s = _plain_quantize(torch, leaf.detach().reshape(-1).float())
+    q, s = ref.quantize_flat_ref(leaf.detach().reshape(-1).float())
     want = ref.dequantize_ref(q, s).reshape(-1)[:n]
     bound = (s.double() * (0.5 + 2.0 ** -16)).repeat_interleave(
         qz.BLOCK_SIZE)[:n]
@@ -980,7 +974,7 @@ def check_q8_ring_kernels(torch, gen, big_n: int, stripe_words: int) -> dict:
     for what, x in cases:
         n = x.numel()
         q, s = qz.quantize(x)
-        qr, sr = _plain_quantize(torch, x)
+        qr, sr = ref.quantize_flat_ref(x)
         errs["quantize"].append(_check_exact(
             torch, f"quantize {what} ({n})", (q, s), (qr, sr)))
         errs["dequantize"].append(_check_exact(
@@ -990,7 +984,7 @@ def check_q8_ring_kernels(torch, gen, big_n: int, stripe_words: int) -> dict:
             continue
         rows = qz.blocks(n)
         ms = _cuda_ms(torch, lambda: qz.quantize(x), reps=20)
-        plain_ms = _cuda_ms(torch, lambda: _plain_quantize(torch, x), reps=5)
+        plain_ms = _cuda_ms(torch, lambda: ref.quantize_flat_ref(x), reps=5)
         bound = _bound_ms(4 * n + n + 4 * rows)
         print(f"quantize ({n} values = {rows} blocks): bit-exact; kernel "
               f"{ms:.4f} ms, bound {bound:.4f} ms, plain {plain_ms:.4f} ms")

@@ -7,7 +7,7 @@ Replace the TPU kernels ``quantize_pallas`` and ``dequantize_pallas``
 ``s = max(absmax, 1e-30) * f32(1/127)`` and int8 codes
 ``q = clip(round(x / s), ±127)``; dequantize is ``q * s``.  A CUDA tensor
 goes through the kernels (one warp per block; see the source's note); a CPU
-tensor goes through the plain versions, ``ref.quantize_ref`` and
+tensor goes through the plain versions, ``ref.quantize_flat_ref`` and
 ``ref.dequantize_ref``.  The kernels take the count of real values, ``n``,
 and read the missing values of a ragged last block as zeros, so nothing is
 padded on the card (the JAX package pads to 256-row tiles, a TPU tiling).
@@ -19,9 +19,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import dequantize_ref, quantize_ref
-
-BLOCK_SIZE = 256  # values per quantization block (one scale each)
+from repro_torch.kernels.ref import (BLOCK_SIZE, dequantize_ref,
+                                     quantize_flat_ref)
 
 #: launches of the CUDA kernels (the plain CPU versions do not count)
 LAUNCHES = _build.LaunchCount("quantize")
@@ -47,9 +46,7 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n = x.shape[0]
     rows = blocks(n)
     if x.device.type == "cpu":
-        padded = x.new_zeros((rows * BLOCK_SIZE,), dtype=torch.float32)
-        padded[:n] = x
-        return quantize_ref(padded.view(rows, BLOCK_SIZE))
+        return quantize_flat_ref(x)
     if x.device.type != "cuda":
         raise ValueError(f"quantize: unsupported device {x.device}")
     if x.dtype != torch.float32:

@@ -123,6 +123,20 @@ def quantize_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.nan_to_num(q, nan=0.0).to(torch.int8), s
 
 
+BLOCK_SIZE = 256  # values per quantization block (one scale each)
+
+
+def quantize_flat_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (n,) float -> ``quantize_ref`` of the values zero-padded, on their
+    own device, to whole blocks: (q (ceil(n/256), 256) int8, s float32).
+    Zeros leave a block's absmax as it is, and their codes are 0."""
+    n = x.shape[0]
+    padded = x.new_zeros((-(-n // BLOCK_SIZE) * BLOCK_SIZE,),
+                         dtype=torch.float32)
+    padded[:n] = x
+    return quantize_ref(padded.view(-1, BLOCK_SIZE))
+
+
 def dequantize_ref(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """q: (n, 256) int8, s: (n,) float32 -> (n, 256) float32 ``q * s``."""
     return q.to(torch.float32) * s[:, None]

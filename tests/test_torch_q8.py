@@ -120,6 +120,19 @@ def test_wrappers_take_ragged_counts_without_padding():
         tqz.quantize(x.view(10, 30))
 
 
+@pytest.mark.parametrize("n", [1, 300, 512])
+def test_quantize_flat_ref_is_the_padded_plain_version(n):
+    """The one plain entry point for (n,) values: ``quantize_ref`` of the
+    values zero-padded to whole blocks, and what the wrapper returns."""
+    x = torch.from_numpy(_values(4, n, np.float32))
+    padded = torch.zeros(-(-n // 256) * 256)
+    padded[:n] = x
+    want = ref.quantize_ref(padded.view(-1, 256))
+    for got in (ref.quantize_flat_ref(x), tqz.quantize(x)):
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
 def test_cpu_versions_launch_nothing_and_ops_count_dispatches():
     counters = (tqz.LAUNCHES, tqz.DEQUANT_LAUNCHES, txp.PAIR_LAUNCHES)
     before = [c.value for c in counters]
