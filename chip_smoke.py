@@ -49,9 +49,21 @@ any failure (the script then exits non-zero):
      padded buffer) and in xor mode (12 XOR-pair launches; each slot's
      stripe equals the host oracle, and slot 2 is rebuilt from the
      survivors and the parity);
-  7. each kernel against its plain PyTorch version on the card, bit-exact,
+  7. the train path: the port's trainer
+     (``repro_torch.launch.train``) at the full width of veloc-demo-100m,
+     batch 8 x 256 tokens, a checkpoint every 10 steps: (a) 40 steps with a
+     simulated failure after step 35 and recovery from v30, (b)
+     ``--resume`` to step 50 from v40, (c) the same 40 steps without
+     checkpoints, all with deterministic algorithms; v10-v50 as a fresh
+     client reads them from the L3 files, the recovered and the resumed
+     state are held byte for byte against a replay of (a) and (b) without
+     checkpoints, the losses against the replay's within
+     ``TRAIN_LOSS_TOL``, and a ``train path {...}`` JSON line
+     gives the step times with and without checkpoints, the overhead, the
+     app blocking per call, the drain and the restarts;
+  8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
-     checksum rows; the XOR group's words in the aligned row layout of
+     checksum rows, and the train path's one-rank shard; the XOR group's words in the aligned row layout of
      ``ops.xor_reduce``; the largest leaf's and the 0-d ``opt/step`` leaf's
      words in 64 KiB rows for the block hash and its fused diff; the dirty
      rows of a 1% version of the largest leaf for the gather; the largest
@@ -65,10 +77,10 @@ any failure (the script then exits non-zero):
      ``torch.index_select`` on that index and the whole wrapper (host
      checks and the index copy included); and the host-to-device copy of a
      shard-sized buffer next to the checksum kernel that digests it;
-  8. a ``{"kernels": [...]}`` line: each kernel's launches on its path and
+  9. a ``{"kernels": [...]}`` line: each kernel's launches on its path and
      on every path (counts set to 0 just before each path), times, bound
      and error;
-  9. as the last line, ``{"ok": true, "device": {...}}``.
+ 10. as the last line, ``{"ok": true, "device": {...}}``.
 
 ``--trace DIR`` also records the checkpoint calls and the drain with
 ``torch.profiler`` (``DIR/trace.json.gz``) and runs a probe thread that
@@ -144,9 +156,12 @@ def _max_abs_err(torch, a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def check_kernels(torch, gen, shard_rows: int, xor_words: int) -> dict:
-    """Phase 7: every kernel against its plain version, bit-exact, at small
-    shapes and at the main path's ``shard_rows`` and ``xor_words``."""
+def check_kernels(torch, gen, shard_rows: int, xor_words: int,
+                  train_rows: int) -> dict:
+    """Phase 8: every kernel against its plain version, bit-exact, at small
+    shapes, at the main path's ``shard_rows`` and ``xor_words`` and at the
+    train path's ``train_rows`` (its one-rank shard); the times kept are
+    the main path's."""
     import numpy as np
 
     from repro_torch.kernels import checksum as ck
@@ -155,7 +170,7 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int) -> dict:
 
     stats = {}
     errs = []
-    for rows in (1, 65, shard_rows):
+    for rows in (1, 65, train_rows, shard_rows):
         x = _random_words(torch, gen, (rows, 2048))
         got, want = ck.checksum(x), ref.checksum_ref(x)
         torch.cuda.synchronize()
@@ -242,7 +257,7 @@ def _check_exact(torch, what: str, got, want) -> int:
 
 def check_delta_kernels(torch, gen, big_words: int, step_words: int,
                         dirty_rows: int, chunk: int) -> dict:
-    """Phase 7 for the delta path's kernels: block hash, fused hash-diff
+    """Phase 8 for the delta path's kernels: block hash, fused hash-diff
     and row gather against their plain versions, bit-exact, at small,
     ragged and misaligned shapes and at the path's own: the largest leaf's
     ``big_words`` words and the 0-d ``opt/step`` leaf's ``step_words`` in
@@ -944,8 +959,281 @@ def ring_path(torch, leaves) -> dict:
                 xor_s=xor_s, oracle_s=oracle_s)
 
 
+# |loss - reference loss| per step.  Every chip run so far measured a gap of
+# exactly 0 between checkpointed and plain training, and the train path runs
+# with deterministic algorithms; one step moves the loss by ~0.015.
+TRAIN_LOSS_TOL = 1e-3
+
+
+def _stats(xs) -> dict:
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def disk_write_gbps(scratch: Path, nbytes: int = 256 << 20) -> float:
+    """Write and fsync ``nbytes`` under ``scratch``, as the external file
+    tier writes a shard; GB/s."""
+    scratch.mkdir(parents=True, exist_ok=True)
+    path = scratch / "disk_probe.bin"
+    buf = os.urandom(1 << 20)
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(nbytes >> 20):
+            f.write(buf)
+        f.flush()
+        os.fsync(f.fileno())
+    dt = time.perf_counter() - t0
+    path.unlink()
+    return nbytes / dt / 1e9
+
+
+def reference_train(torch, seed: int) -> dict:
+    """Runs (a) and (b) of ``train_path`` replayed with the trainer's own
+    parts (the initial state, the stream, the plain train step) and no
+    checkpoint: steps 1-35, then from a copy of the state after step 30
+    the batches of steps 36-50, as (a) goes on after its recovery and (b)
+    after its resume.  Returns the losses of (a)'s and (b)'s steps and
+    device copies of the state after steps 10, 20, 30, 40 and 50: what
+    v10-v50 must hold."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core.capture import snapshot_device
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = get_config("veloc-demo-100m")
+    state = init_train_state(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+    stream = SyntheticStream(cfg, ShapeCfg("cli", 256, 8, "train"),
+                             seed=1234, device="cuda")
+    step = make_train_step(cfg, lr=3e-4)
+    losses, states = [], {}
+
+    def train(state, batches):
+        for i in batches:
+            state, m = step(state, stream.batch(i))
+            losses.append(float(m["loss"]))
+            if (i + 1) % 10 == 0 and i + 1 not in states:
+                states[i + 1] = snapshot_device(state).tree
+        return state
+
+    train(state, range(35))  # the live state is dropped at the failure
+    state = train(snapshot_device(states[30]).tree, range(35, 50))
+    return {"a": losses[:40], "b": losses[40:], "states": states}
+
+
+def train_path(torch, scratch: Path, seed: int) -> dict:
+    """Phase 7, the training workload: the port's trainer
+    ``repro_torch.launch.train`` at the full width of veloc-demo-100m
+    (83.1 M parameters, AdamW in f32, bf16 compute), batch 8 x 256 tokens,
+    checkpointing every 10 steps through the one-rank async pipeline
+    (serialize -> local -> flush).  Three runs, then a reference:
+
+      a. 40 steps, a simulated failure after step 35, recovery from v30;
+      b. ``--resume`` to step 50, which must resume from v40;
+      c. the same 40 steps with ``--mode off``, the baseline rate;
+      ref. (a) and (b) replayed without checkpoints (``reference_train``).
+
+    Deterministic algorithms are on for the whole phase, so the runs and
+    the reference must agree to the bit.  Checks: every loss finite and
+    the last below the first in (a) and (c); every loss of (a), (b) and (c)
+    within ``TRAIN_LOSS_TOL`` of the reference's at the same step; each of
+    v10-v50, read back from the L3 files by a fresh client, equal byte for
+    byte to the reference's state after that step, so no snapshot taken
+    in the middle of (a) was overwritten by the next step's in-place
+    update before the backend copied it; the state (a) recovered equal to
+    v30, the state (b) resumed from equal to (a)'s last, the fresh
+    client's ``restart_latest`` returning v50 equal to (b)'s last.  The
+    rate of a run is its steps 2-N over the sum of their times (step 1
+    holds the first use of each operator).  Then steps without and with
+    checkpoints are profiled (``profile_train_steps``)."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import restart as rst
+    from repro_torch.core.capture import tree_from_regions
+    from repro_torch.launch import train as trainer
+    from repro_torch.models.model import model_flops
+
+    disk_gbps = disk_write_gbps(scratch)
+    common = ["--arch", "veloc-demo-100m", "--seq-len", "256", "--batch",
+              "8", "--ckpt-every", "10", "--seed", str(seed),
+              "--scratch", str(scratch)]
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        runs = {"a": trainer.main(common + ["--mode", "async", "--steps",
+                                            "40", "--fail-at", "35"]),
+                "b": trainer.main(common + ["--resume", "--steps", "50"]),
+                "c": trainer.main(common + ["--mode", "off", "--steps",
+                                            "40"])}
+        ref = reference_train(torch, seed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    for k, r in runs.items():
+        if not all(math.isfinite(x) for x in r.losses) or \
+                (k != "b" and not r.losses[-1] < r.losses[0]):
+            raise AssertionError(f"train run {k}: losses {r.losses}")
+    if (a.recovered_version, b.resumed_from) != (30, 40):
+        raise AssertionError(f"recovered v{a.recovered_version}, resumed "
+                             f"from v{b.resumed_from}; want v30, v40")
+    want = {"a": ref["a"], "b": ref["b"], "c": ref["a"][:35]}
+    gap = {k: max(abs(x - y) for x, y in zip(runs[k].losses, w))
+           for k, w in want.items()}
+    if len(a.losses) != 40 or len(b.losses) != 10 or \
+            max(gap.values()) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"losses differ from the reference's by {gap}")
+
+    fresh = trainer.VelocClient(
+        trainer.make_pipeline(trainer.parse_args(common)),
+        trainer.Cluster(trainer.TierTopology(scratch=str(scratch))))
+    try:
+        for v in (10, 20, 30, 40, 50):
+            regs = rst.load_rank_regions(fresh.cluster, fresh.name, v, 0)
+            _assert_tree_equal(torch, tree_from_regions(a.state, regs),
+                               ref["states"][v], f"v{v} against the "
+                               f"reference's state after step {v}")
+        _assert_tree_equal(torch, a.recovered_state, ref["states"][30],
+                           "state recovered at the failure")
+        _assert_tree_equal(torch, b.resumed_state, a.state,
+                           "state resumed in (b)")
+        version, latest = fresh.restart_latest(a.state)
+        if version != 50:  # run b wrote v50 over the same directory
+            raise AssertionError(f"fresh client restored v{version}")
+        _assert_tree_equal(torch, latest, b.state, "v50")
+        shard_bytes = len(fresh.cluster.fetch_shard(fresh.name, 40, 0))
+    finally:
+        fresh.shutdown()
+    del ref
+
+    def rate(r):
+        return (len(r.step_s) - 1) / sum(r.step_s[1:])
+
+    flops = model_flops(get_config("veloc-demo-100m"),
+                        trainer.ShapeCfg("cli", 256, 8, "train"))
+    profile = profile_train_steps(torch, seed, scratch / "trace")
+    out = {
+        "step_ms_ckpt": {k: v * 1e3 for k, v in
+                         _stats(a.step_s[1:]).items()},
+        "step_ms_no_ckpt": {k: v * 1e3 for k, v in
+                            _stats(c.step_s[1:]).items()},
+        "step_ms_resumed": {k: v * 1e3 for k, v in
+                            _stats(b.step_s[1:]).items()},
+        "rate_steps_per_s": {"a": rate(a), "b": rate(b), "c": rate(c)},
+        "ckpt_overhead": 1 - rate(a) / rate(c),
+        "app_blocking_s": {"a": a.app_blocking_s, "b": b.app_blocking_s},
+        "drain_s": {"a": a.drain_s, "b": b.drain_s},
+        "restart_s": {"fail_at_v30": a.restart_s[0],
+                      "resume_v40": b.restart_s[0]},
+        "failure_wait_s": a.failure_wait_s,
+        "disk_write_fsync_gbps": disk_gbps,
+        "loss": {"a": [a.losses[0], a.losses[-1]],
+                 "b": [b.losses[0], b.losses[-1]],
+                 "c": [c.losses[0], c.losses[-1]],
+                 "max_gap_to_reference": gap},
+        "model_flops_per_step": flops,
+        "model_tflops_no_ckpt": flops * rate(c) / 1e12,
+        # device work of a plain step (profiled) over (c)'s median step
+        "idle_share_no_ckpt": 1 - profile["plain"]["device_busy_ms_per_step"]
+        / (statistics.median(c.step_s[1:]) * 1e3),
+        "shard_bytes": shard_bytes,
+        "step_ms_a": [x * 1e3 for x in a.step_s],
+        "profile": profile,
+    }
+    print(f"train path: veloc-demo-100m at full width, batch 8 x 256; "
+          f"median step {out['step_ms_no_ckpt']['median']:.2f} ms without "
+          f"checkpoints, {out['step_ms_ckpt']['median']:.2f} ms with; "
+          f"overhead {out['ckpt_overhead']:.4f}; v10-v50 equal to the "
+          f"reference's states; recovered v30, resumed v40")
+    return out
+
+
+def profile_train_steps(torch, seed: int, scratch: Path,
+                        steps: int = 5, ckpt_steps: int = 12) -> dict:
+    """Where a train step's time goes, under ``torch.profiler`` at the
+    trainer's shape, after two warm-up steps:
+
+      plain: ``steps`` steps without checkpoints: wall time per step and
+        the device's idle share, both under the profiler (which slows the
+        host; ``train_path`` gives the idle share against an unprofiled
+        step), device busy time per step (the union of kernels and copies)
+        and the kernels launched per step;
+      ckpt: ``ckpt_steps`` steps with the fused capture and an async
+        checkpoint (the trainer's one-rank pipeline) after every fourth,
+        so versions queue up as in run (a): per step, its length, the
+        calling thread's time in operators and between them, its CUDA
+        runtime calls by name and the backend threads' pageable copies
+        (``blocking_breakdown``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import train as trainer
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = get_config("veloc-demo-100m")
+    state = init_train_state(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    stream = SyntheticStream(cfg, ShapeCfg("cli", 256, 8, "train"))
+    step = make_train_step(cfg)
+    for i in range(2):
+        float(step(state, stream.batch(i))[1]["loss"])
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        with record_function("train steps"):
+            t0 = time.perf_counter()
+            for i in range(steps):
+                float(step(state, stream.batch(2 + i))[1]["loss"])
+            wall = time.perf_counter() - t0
+    scratch.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(scratch / "train_steps.json.gz"))
+    events = _load_trace(scratch / "train_steps.json.gz")
+    dev = device_time(events)
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    out = {"plain": {
+        "steps": steps, "wall_ms_per_step_profiled": wall / steps * 1e3,
+        "device_busy_ms_per_step": dev["busy_ms"] / steps,
+        "idle_share_profiled": dev["idle_share"],
+        "kernels_per_step": kernels / steps,
+        "device_ms_by_kind_per_step": {
+            k: v / steps for k, v in dev["ms_by_kind"].items()}}}
+
+    args = trainer.parse_args(["--scratch", str(scratch / "ckpt")])
+    client = trainer.VelocClient(trainer.make_pipeline(args), trainer.Cluster(
+        trainer.TierTopology(scratch=args.scratch)))
+    step = make_train_step(cfg, capture=True)
+    try:
+        with profile(activities=activities) as prof:
+            for i in range(ckpt_steps):
+                with record_function(f"step {i}"):
+                    state, snap, m = step(state, stream.batch(10 + i))
+                    float(m["loss"])
+                    if i % 4 == 1:
+                        client.checkpoint(state, version=i, snap=snap)
+        if not client.wait(timeout=300):
+            raise AssertionError("profiled checkpoints did not drain")
+    finally:
+        client.shutdown()
+    prof.export_chrome_trace(str(scratch / "ckpt_steps.json.gz"))
+    events = _load_trace(scratch / "ckpt_steps.json.gz")
+    out["ckpt"] = blocking_breakdown(events, [f"step {i}"
+                                              for i in range(ckpt_steps)])
+    return out
+
+
+def _assert_tree_equal(torch, got, want, what: str):
+    from repro_torch.core.capture import leaves_with_paths
+
+    g, w = leaves_with_paths(got), leaves_with_paths(want)
+    _assert_equal(torch, dict(g), dict(w), what)
+
+
 def check_q8_ring_kernels(torch, gen, big_n: int, stripe_words: int) -> dict:
-    """Phase 7 for the q8 and ring kernels: quantize, dequantize and
+    """Phase 8 for the q8 and ring kernels: quantize, dequantize and
     xor_pair against their plain versions, bit for bit, at small, ragged
     and misaligned shapes, at NaN, ±inf, all-zero and f16 blocks, and at
     the paths' own: the largest leaf's ``big_n`` values and the ring's
@@ -1046,6 +1334,9 @@ def main(argv=None) -> int:
                     help="profile the checkpoint calls and the drain into "
                          "this directory")
     args = ap.parse_args(argv)
+    # cuBLAS is deterministic under the train path's deterministic
+    # algorithms only with a fixed workspace, read when its handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -1130,10 +1421,17 @@ def main(argv=None) -> int:
         "ring path", ("xor_pair",), lambda: ring_path(torch, leaves))
     big_n = max(t.numel() for _, t in leaves)
     del leaves, ranks
+    train, by_path["train"] = run_path(
+        "train path", ("checksum",),
+        lambda: train_path(torch, scratch / "train", args.seed))
+    shutil.rmtree(scratch / "train", ignore_errors=True)
+    train["launches"] = by_path["train"]
+    print(f"train path {json.dumps(train)}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],
-                          xor_words=path["xor_words"])
+                          xor_words=path["xor_words"],
+                          train_rows=-(-train["shard_bytes"] // 8192))
     stats.update(check_delta_kernels(
         torch, gen, big_words=delta["big_words"], step_words=step_words,
         dirty_rows=delta["dirty_rows"], chunk=delta["chunk_words"]))

@@ -131,12 +131,22 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ------------------------------------------------------------------
+    # Parameter count (exact, from the layer math) for MODEL_FLOPS=6*N*D.
+    # ------------------------------------------------------------------
+    def param_counts(self) -> dict[str, float]:
+        from repro_torch.models.model import count_params  # no import cycle
 
-#: The ported configurations.  The JAX package's other architectures join
-#: with the model families (ROADMAP.md queue 1, item 9); so does
-#: ``param_counts``, which needs the model code.
+        return count_params(self)
+
+
+#: The ported configurations: the dense family.  The JAX package's other
+#: architectures join with their model families (ROADMAP.md queue 1, item 9).
 _REGISTRY = {
     "veloc-demo-100m": "veloc_demo_100m",
+    "minitron-8b": "minitron_8b",
+    "yi-9b": "yi_9b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
 }
 
 

@@ -1,0 +1,17 @@
+"""phi3-mini-3.8b [arXiv:2404.14219; unverified] - RoPE SwiGLU, MHA.
+
+32L, d_model=3072, 32H (kv=32), d_ff=8192, vocab=32064.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b", family="dense",
+    num_layers=32, d_model=3072, num_heads=32, num_kv_heads=32,
+    d_ff=8192, vocab_size=32064,
+    mlp="swiglu",
+    source="arXiv:2404.14219",
+)
+
+def smoke() -> ModelConfig:
+    return CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+                          d_ff=128, vocab_size=512, remat=False)

@@ -1,10 +1,19 @@
-"""Training state of the dense family, and its exchange with the JAX package.
+"""Training state and step of the dense family, and the state's exchange
+with the JAX package.
 
 ``init_train_state`` builds ``{"params", "opt": {"m", "v", "step"}}`` with
 the tree paths, shapes and dtypes of ``repro.train.steps.init_train_state``
 (AdamW moments in ``cfg.opt_dtype``), drawn from an explicit
 ``torch.Generator`` on an explicit device.  The values differ from JAX's:
 the two frameworks' generators give different numbers from one seed.
+
+``make_train_step`` returns an eager step: gradients from
+``torch.autograd``, then AdamW in place.  With ``capture=True`` it also
+returns the L1 snapshot of the fresh state (``snapshot_device``), queued
+on the compute stream right after the update, the counterpart of the JAX
+step's in-graph copy (DeepFreeze-style fused capture): the backend's copy
+stream waits on the snapshot's event, and the next step's in-place update,
+queued after the clones on the same stream, cannot overwrite them first.
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across the package
 boundary as numpy arrays.  numpy has no bfloat16 of its own: the JAX
@@ -13,91 +22,60 @@ package's bf16 leaves are ml_dtypes arrays, and the port's are
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.capture import map_tree
+from repro_torch.core.capture import (leaves_with_paths, map_tree,
+                                      snapshot_device)
+from repro_torch.models.model import init_model, make_loss_fn
+from repro_torch.train import optimizer as opt_lib
 
 
-def _dtype(name: str) -> torch.dtype:
-    dt = getattr(torch, name, None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {name!r}")
-    return dt
-
-
-def _he(gen, shape, dtype, device, fan_in=None):
-    """Normal weights scaled by 1/sqrt(fan_in) (the JAX package's ``he``);
-    ``shape`` leads with the stacked-layer dimension, ``fan_in`` is the
-    per-layer one."""
-    std = 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (w * std).to(dtype)
-
-
-def _init_block(gen, cfg: ModelConfig, kind: str, groups: int, dt, device):
-    d, H, K, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                      cfg.head_dim, cfg.d_ff)
-    if kind not in ("attn", "local_attn"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 9)")
-    G = (groups,)
-
-    def he(shape, fan_in):
-        return _he(gen, G + shape, dt, device, fan_in)
-
-    mix = {"wq": he((d, H, hd), d), "wk": he((d, K, hd), d),
-           "wv": he((d, K, hd), d), "wo": he((H, hd, d), H * hd)}
-    if cfg.mlp in ("swiglu", "geglu"):
-        ffn = {"w_gate": he((d, f), d), "w_up": he((d, f), d),
-               "w_down": he((f, d), f)}
-    else:
-        ffn = {"w_up": he((d, f), d), "w_down": he((f, d), f)}
-    ones = torch.ones(G + (d,), dtype=dt, device=device)
-    return {"norm1": ones, "mix": mix, "norm2": ones.clone(), "ffn": ffn}
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no GPU raises:
+    the port never falls back to the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: the device is cuda but no GPU is available (pass "
+            "device='cpu' to run on the CPU)")
+    return device
 
 
 def init_train_state(cfg: ModelConfig, *, generator: torch.Generator = None,
                      device="cuda"):
     """Dense-family train state on ``device``: the layer stack stacked along
     a leading dimension per block kind, as the JAX package lays it out."""
-    if cfg.family != "dense" or cfg.moe is not None \
-            or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.family!r} models are not ported yet (ROADMAP.md queue 1, "
-            f"item 9)")
-    device = torch.device(device)
+    device = check_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    dt = _dtype(cfg.param_dtype)
-    pat = cfg.block_pattern
-    n_groups, rem = cfg.num_layers // len(pat), cfg.num_layers % len(pat)
-    d, V = cfg.d_model, cfg.padded_vocab
-    params = {
-        "emb": _he(generator, (V, d), dt, device, fan_in=d),
-        "blocks": tuple(_init_block(generator, cfg, kind, n_groups, dt, device)
-                        for kind in pat),
-        "rem": tuple(
-            map_tree(lambda _, x: x[0],
-                     _init_block(generator, cfg, pat[i % len(pat)], 1, dt,
-                                 device))
-            for i in range(rem)),
-        "final_norm": torch.ones((d,), dtype=dt, device=device),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _he(generator, (d, V), dt, device, fan_in=d)
-    odt = _dtype(cfg.opt_dtype)
+    params = init_model(cfg, generator=generator, device=device)
+    return {"params": params, "opt": opt_lib.adamw_init(params, cfg.opt_dtype)}
 
-    def zeros(_, p):
-        return torch.zeros(p.shape, dtype=odt, device=device)
 
-    opt = {"m": map_tree(zeros, params), "v": map_tree(zeros, params),
-           "step": torch.zeros((), dtype=torch.int32, device=device)}
-    return {"params": params, "opt": opt}
+def make_train_step(cfg: ModelConfig, *, lr=3e-4, capture=False):
+    """``step(state, batch)`` -> ``(state, metrics)``, or
+    ``(state, snap, metrics)`` with ``capture``; ``state`` is updated in
+    place and returned.  ``metrics`` holds 0-d device tensors ``loss`` and
+    ``grad_norm``: reading them is the caller's wait for the device."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(state, batch):
+        params = state["params"]
+        tracked = map_tree(lambda _, t: t.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss = loss_fn(tracked, batch)
+        grads = torch.autograd.grad(
+            loss, [t for _, t in leaves_with_paths(tracked)])
+        _, _, metrics = opt_lib.adamw_update(list(grads), state["opt"],
+                                             params, lr=lr)
+        metrics["loss"] = loss.detach()
+        if capture:
+            return state, snapshot_device(state), metrics
+        return state, metrics
+
+    return train_step
 
 
 def state_from_numpy(tree, device="cuda"):

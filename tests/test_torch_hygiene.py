@@ -57,6 +57,21 @@ def test_port_imports_neither_jax_nor_repro():
     assert r.stdout.startswith("ok")
 
 
+def test_import_walk_covers_the_workload_modules():
+    """The walk above reaches the training workload's modules (each
+    subpackage has an ``__init__``)."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.model", "repro_torch.train.optimizer",
+            "repro_torch.train.data", "repro_torch.train.steps",
+            "repro_torch.launch.train"} <= names
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
     roots = set()

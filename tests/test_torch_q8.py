@@ -167,16 +167,44 @@ def test_quantize_kernel_vs_ref(rows, bs, dtype):
     np.testing.assert_array_equal(_bits(br.numpy()), _bits(np.asarray(back)))
 
 
-@pytest.mark.parametrize("seed", range(15))
-def test_quantize_roundtrip_error_bound(seed):
-    """Property: block-int8 quantization error <= scale/2 per element."""
-    rng = np.random.default_rng(seed)
-    n = int(rng.integers(10, 5001))
-    x = (rng.standard_normal(n) * rng.uniform(0.1, 10)).astype(np.float32)
+#: (n, seed) draws, as the JAX property test draws them, where the error
+#: exceeds ``s/2 + 1e-7`` by 0.9e-7 to 2.7e-7: two f32 roundings, not a
+#: fault of the quantizer.
+_BREAKING_DRAWS = [(3144, 1028060167), (5000, 256), (4999, 277), (4096, 256)]
+
+
+def _roundtrip_draw(case):
+    """The 15 seeded draws (n from the seed) and the breaking draws."""
+    kind, a = case
+    if kind == "seed":
+        rng = np.random.default_rng(a)
+        n = int(rng.integers(10, 5001))
+    else:
+        n, seed = a
+        rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n) * rng.uniform(0.1, 10)).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "case", [("seed", s) for s in range(15)]
+    + [("draw", d) for d in _BREAKING_DRAWS],
+    ids=[f"seed{s}" for s in range(15)]
+    + [f"n{n}-seed{s}" for n, s in _BREAKING_DRAWS])
+def test_quantize_roundtrip_error_bound(case):
+    """Property: block-int8 quantization error <= scale/2 per element, plus
+    what the two f32 roundings add.  ``fl(x/s)`` is within ``|x/s| 2^-24``
+    of ``x/s``, so ``q = rint(fl(x/s))`` is within ``1/2 + |x/s| 2^-24``
+    and ``q*s`` within ``s/2 + |x| 2^-24`` of ``x``; ``fl(q*s)`` adds at
+    most ``|q*s| 2^-24 <= (|x| + s/2) 2^-24``.  The sum is under the
+    asserted ``s/2 (1 + 2^-23) + |x| 2^-23``, computed in f64."""
+    x = _roundtrip_draw(case)
     q, s, n_out, shape = ops.quantize(x)
     back = ops.dequantize(q, s, n_out, shape)
-    per_block_bound = np.repeat(s, 256)[:n] * 0.5 + 1e-7
-    assert (np.abs(back - x) <= per_block_bound).all()
+    eps = 2.0 ** -23
+    s64 = np.repeat(s.astype(np.float64), 256)[:x.size]
+    x64 = x.astype(np.float64)
+    bound = s64 * 0.5 * (1 + eps) + np.abs(x64) * eps
+    assert (np.abs(back.astype(np.float64) - x64) <= bound).all()
 
 
 def test_quantize_preserves_shape_dtype_meta():
