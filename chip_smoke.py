@@ -49,18 +49,39 @@ any failure (the script then exits non-zero):
      padded buffer) and in xor mode (12 XOR-pair launches; each slot's
      stripe equals the host oracle, and slot 2 is rebuilt from the
      survivors and the parity);
+  6b. the recovery path (``recovery_path``): the full state as 4
+     data-parallel ranks (each leaf split in 4 along its first axis) under
+     delta, device delta, aggregation, rolling packs of 2, the catalog,
+     peer seal copies, partner copies and two XOR groups of 2; v1-v4, the
+     open pack sealed at shutdown; then (a) a fresh cluster restores
+     through the catalog with no key listing, (b) rank 0 from its partner
+     copies with the external tier failing every get (none made), (c) 8
+     concurrent readers of the packed mid-chain v3, one external get per
+     blob, (d) an elastic restart from 4 ranks to 2, (e) rank 2 rebuilt
+     from XOR parity after its L1, partner and peer copies are wiped; each
+     byte for byte against the live state; a ``recovery path {...}`` JSON
+     line with the restart times, external gets, listings and launches;
   7. the train path: the port's trainer
      (``repro_torch.launch.train``) at the full width of veloc-demo-100m,
      batch 8 x 256 tokens, a checkpoint every 10 steps: (a) 40 steps with a
      simulated failure after step 35 and recovery from v30, (b)
      ``--resume`` to step 50 from v40, (c) the same 40 steps without
-     checkpoints, all with deterministic algorithms; v10-v50 as a fresh
-     client reads them from the L3 files, the recovered and the resumed
-     state are held byte for byte against a replay of (a) and (b) without
+     checkpoints, (d) run (a) with ``--phase-predictor gru``, all with
+     deterministic algorithms; v10-v50 as a fresh client reads them from
+     the L3 files, (d)'s v10-v40, the recovered and the resumed states are
+     held byte for byte against a replay of (a) and (b) without
      checkpoints, the losses against the replay's within
      ``TRAIN_LOSS_TOL``, and a ``train path {...}`` JSON line
      gives the step times with and without checkpoints, the overhead, the
-     app blocking per call, the drain and the restarts;
+     app blocking per call, the drain and the restarts; a ``gru gate
+     {...}`` line sets (d) beside (a) (step times, overhead, the loop's
+     host time in ``tick`` per step, drain) and holds the GRU on the card
+     against its plain CPU version on (d)'s step times (``gru_gate_check``);
+  7b. the interval optimizer (``interval_check``): ``MLIntervalOptimizer``
+     fitted on the card and on the CPU from the same parameters, their
+     predictions within ``INTERVAL_ABS_TOL``, and an ``interval optimizer
+     {...}`` line with the fitted best interval beside the simulator's
+     best and Young/Daly;
   8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
      checksum rows, and the train path's one-rank shard; the XOR group's words in the aligned row layout of
@@ -608,7 +629,7 @@ def _bump_chunks(torch, gen, leaves, chunk_bytes: int, per: int):
     with torch.no_grad():
         for _, t in leaves:
             rows = -(-t.numel() * t.element_size() // chunk_bytes)
-            pick = torch.randperm(rows, generator=gen, device="cuda")[
+            pick = torch.randperm(rows, generator=gen, device=t.device)[
                 :max(1, rows // per)]
             flat = t.view(-1)
             flat[pick * (chunk_bytes // t.element_size())] += 1
@@ -889,14 +910,15 @@ def q8_path(torch, ranks, load, scratch: Path) -> dict:
                 shard_bytes=shard_bytes, raw_bytes=list(load))
 
 
-def ring_slots(torch, leaves):
-    """Four slots on the card: each leaf split in 4 along its first axis
-    where that divides by 4 (``P("data", ...)``), else whole (replicated)."""
-    slots = [dict() for _ in range(NRANKS)]
+def ring_slots(torch, leaves, n: int = NRANKS):
+    """``n`` slots (4 unless stated) as data-parallel ranks hold the state:
+    each leaf split in ``n`` along its first axis where that divides by 4
+    (``P("data", ...)``), else whole (replicated).  Views of the leaves."""
+    slots = [dict() for _ in range(n)]
     for name, t in leaves:
         split = t.dim() > 0 and t.shape[0] % NRANKS == 0
-        k = t.shape[0] // NRANKS if split else 0
-        for g in range(NRANKS):
+        k = t.shape[0] // n if split else 0
+        for g in range(n):
             slots[g][name] = t[g * k:(g + 1) * k] if split else t
     return slots
 
@@ -957,6 +979,265 @@ def ring_path(torch, leaves) -> dict:
           f"{oracle_s:.3f} s)")
     return dict(slot_words=words, stripe_words=c, partner_s=partner_s,
                 xor_s=xor_s, oracle_s=oracle_s)
+
+
+RECOVERY_VERSIONS = 4  # v1 full, v2-v4 deltas at 1 % of chunks dirty
+RECOVERY_TARGET = 3    # the packed mid-chain version the readers restore
+RECOVERY_READERS = 8
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _blob_keys(fmt, name, counts):
+    """The segment/pack keys among a tier's observed gets."""
+    return [k for k in counts
+            if k.startswith(fmt.pack_prefix(name)) or k.endswith("/segment")]
+
+
+def recovery_path(torch, leaves, scratch: Path, seed: int) -> dict:
+    """Phase 6b, the recovery path: the full train state as 4 data-parallel
+    ranks
+    (``ring_slots``: each leaf split in 4 along its first axis), written
+    under ``VelocConfig(delta=True, device_delta=True, aggregate=True,
+    pack_versions=2, catalog=True, peer_seal_copies=True, xor_group=2)``
+    (async; partner copies at distance 1; two XOR groups of 2, each
+    group's parity on the other group's leader).  v1 is full, v2-v4 are
+    deltas at 1 % of chunks dirty; v2 and v3 share a rolling pack; v4's
+    open pack is sealed at shutdown.  Then, each result held byte for
+    byte against the live state (or the copy taken at v3):
+
+      a. a fresh cluster and client per rank restore v4 through the
+         catalog, with no ``keys()`` listing on any tier;
+      b. with every external tier failing its gets and node 0 lost, rank
+         0 restores v4 from its partner copies on node 1: no external get;
+      c. 8 concurrent readers (2 per rank) restore the packed mid-chain
+         v3 from the external tier alone (fresh cluster, node tiers
+         empty): one external get per segment or pack blob;
+      d. an elastic restart of v4 from 4 ranks to 2;
+      e. rank 2's L1 (node 2), its partner copies (on node 3) and the
+         peer copies of the sealed blobs wiped, the external tier failing
+         its gets and the writer's cache of its parsed blobs emptied: rank
+         2's v1-v4 rebuilt from XOR parity and rank 3.
+
+    (e) runs before (b), as (b)'s lost node 0 holds the parity (e) needs.
+    Runs on the leaves' device: the card here, the CPU in a rehearsal."""
+    import threading
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_helpers import CountingTier, FlakyTier, wrap_external_tiers
+
+    from repro_torch.core import Cluster, VelocClient, VelocConfig
+    from repro_torch.core import format as fmt
+    from repro_torch.core import restart as rst
+    from repro_torch.core.capture import tree_from_regions
+    from repro_torch.kernels import ops
+
+    vcfg = VelocConfig(mode="async", scratch=str(scratch), delta=True,
+                       device_delta=True, aggregate=True, pack_versions=2,
+                       catalog=True, peer_seal_copies=True, xor_group=2,
+                       keep_versions=10)
+    name = vcfg.name
+    slots = ring_slots(torch, leaves)
+    gen = torch.Generator(device=leaves[0][1].device).manual_seed(seed)
+    cluster = Cluster(vcfg, nranks=NRANKS)
+    clients = [VelocClient(vcfg, cluster, rank=r) for r in range(NRANKS)]
+    kinds, kept, write_s = [], None, []
+    try:
+        for v in range(1, RECOVERY_VERSIONS + 1):
+            if v > 1:
+                _bump_chunks(torch, gen, leaves, vcfg.delta_chunk_bytes, 100)
+            t0 = time.perf_counter()
+            futs = [c.checkpoint(slots[r], version=v)
+                    for r, c in enumerate(clients)]
+            for c in clients:
+                if not c.wait(timeout=600):
+                    raise AssertionError(f"recovery v{v} did not drain")
+            write_s.append(time.perf_counter() - t0)
+            for r, f in enumerate(futs):
+                if f.module_errors:
+                    raise AssertionError(f"recovery v{v} rank {r}: "
+                                         f"{f.module_errors}")
+            kinds.append([f.results["delta_kind"] for f in futs])
+            if v == RECOVERY_TARGET:
+                kept = [{k: t.clone() for k, t in s.items()} for s in slots]
+    finally:
+        t0 = time.perf_counter()
+        for c in clients:
+            c.shutdown()  # seals v4's open pack
+        seal_s = time.perf_counter() - t0
+    want = [["full"] * NRANKS] + [["delta"] * NRANKS] * (
+        RECOVERY_VERSIONS - 1)
+    if kinds != want:
+        raise AssertionError(f"recovery: delta kinds {kinds}")
+    with cluster._lock:
+        packs = {v: cluster._packed.get((name, v))
+                 for v in range(1, RECOVERY_VERSIONS + 1)}
+    if not packs[RECOVERY_TARGET] or \
+            packs[2] != packs[RECOVERY_TARGET] or \
+            cluster.catalog_diagnostics:
+        raise AssertionError(f"recovery: packs {packs}, catalog "
+                             f"{cluster.catalog_diagnostics}")
+
+    def all_tiers(cl):
+        return list(cl.external_tiers) + \
+            [t for ts in cl._node_tiers for t in ts]
+
+    # (a) a fresh cluster restores through the catalog, listing nothing
+    fresh = Cluster(vcfg, nranks=NRANKS)
+    for t in all_tiers(fresh):
+        t.keys_calls = 0
+    gets0 = sum(t.get_calls for t in fresh.external_tiers)
+    readers = [VelocClient(vcfg, fresh, rank=r) for r in range(NRANKS)]
+    a_s = []
+    try:
+        for r, c in enumerate(readers):
+            t0 = time.perf_counter()
+            v, got = c.restart_latest(slots[r])
+            _sync(torch)
+            a_s.append(time.perf_counter() - t0)
+            if v != RECOVERY_VERSIONS:
+                raise AssertionError(f"(a) rank {r} restored v{v}: "
+                                     f"{c.restart_diagnostics}")
+            _assert_equal(torch, got, slots[r], f"(a) rank {r}")
+    finally:
+        for c in readers:
+            c.shutdown()
+    a_listings = sum(t.keys_calls for t in all_tiers(fresh))
+    a_gets = sum(t.get_calls for t in fresh.external_tiers) - gets0
+    if a_listings:
+        raise AssertionError(f"(a) the catalog restart listed keys "
+                             f"{a_listings} times")
+
+    # (c) concurrent readers of the packed mid-chain version, external only
+    ext = Cluster(vcfg, nranks=NRANKS)
+    for ts in ext._node_tiers:
+        for t in ts:
+            t.wipe()
+    counting = wrap_external_tiers(ext, CountingTier)
+    barrier = threading.Barrier(RECOVERY_READERS)
+    c_out = [None] * RECOVERY_READERS
+
+    def reader(i):
+        barrier.wait()
+        t0 = time.perf_counter()
+        try:
+            regs = rst.load_rank_regions(ext, name, RECOVERY_TARGET,
+                                         i % NRANKS)
+            c_out[i] = (regs, time.perf_counter() - t0, None)
+        except Exception as e:  # noqa: BLE001 — raised below
+            c_out[i] = (None, time.perf_counter() - t0, e)
+
+    threads = [threading.Thread(target=reader, args=(i,))
+               for i in range(RECOVERY_READERS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    c_wall = time.perf_counter() - t0
+    for i, (regs, _, err) in enumerate(c_out):
+        if err is not None:
+            raise AssertionError(f"(c) reader {i}: {err!r}")
+        r = i % NRANKS
+        _assert_equal(torch, tree_from_regions(slots[r], regs), kept[r],
+                      f"(c) reader {i} (rank {r}) v{RECOVERY_TARGET}")
+    blob_gets = {k: n for t in counting for k, n in t.get_counts.items()
+                 if k in _blob_keys(fmt, name, t.get_counts)}
+    if not blob_gets or max(blob_gets.values()) != 1 or \
+            any(t.keys_calls for t in counting):
+        raise AssertionError(f"(c) blob gets {blob_gets}, listings "
+                             f"{[t.keys_calls for t in counting]}")
+    c_s = [x[1] for x in c_out]
+    del c_out, kept
+
+    # (d) elastic restart: 4 ranks -> 2
+    t0 = time.perf_counter()
+    per_rank = rst.load_all_regions(fresh, name, RECOVERY_VERSIONS)
+    halves = ring_slots(torch, leaves, 2)
+    new = rst.elastic_regions(per_rank, 2)
+    got = [tree_from_regions(halves[r], new[r]) for r in range(2)]
+    _sync(torch)
+    d_s = time.perf_counter() - t0
+    for r in range(2):
+        _assert_equal(torch, got[r], halves[r], f"(d) new rank {r} of 2")
+    del per_rank, new, got
+
+    # (e) rank 2 rebuilt from XOR parity; then (b) rank 0 from partners
+    plan = rst.plan_restore(cluster, name)  # while the tiers are healthy
+    cluster.fail_node(2)
+    for t in cluster.node_tiers(3):
+        for v in range(1, RECOVERY_VERSIONS + 1):
+            t.delete(fmt.shard_key(name, v, 2) + ".partner")
+    for ts in cluster._node_tiers:
+        for t in ts:  # the peer copies of the sealed segments and packs
+            for k in _blob_keys(fmt, name, t.keys()):
+                t.delete(k)
+    flaky = wrap_external_tiers(cluster,
+                                lambda t: FlakyTier(t, fail_gets=True))
+    with cluster._seg_lock:  # the writer's parsed external blobs go too
+        cluster._segcache.clear()
+    xor0 = ops.KERNEL_DISPATCHES["xor_reduce"]
+    t0 = time.perf_counter()
+    regs = rst.load_rank_regions(cluster, name, RECOVERY_VERSIONS, 2,
+                                 plan=plan)
+    got = tree_from_regions(slots[2], regs)
+    _sync(torch)
+    e_s = time.perf_counter() - t0
+    e_xor = ops.KERNEL_DISPATCHES["xor_reduce"] - xor0
+    _assert_equal(torch, got, slots[2], "(e) rank 2 from XOR parity")
+    if e_xor < RECOVERY_VERSIONS:
+        raise AssertionError(f"(e) {e_xor} XOR rebuilds for "
+                             f"{RECOVERY_VERSIONS} links")
+    e_failed = sum(len(f.failed_gets) for f in flaky)
+
+    cluster.fail_node(0)
+    for f in flaky:
+        f.failed_gets.clear()
+    gets0 = [f.inner.get_calls for f in flaky]
+    t0 = time.perf_counter()
+    regs = rst.load_rank_regions(cluster, name, RECOVERY_VERSIONS, 0,
+                                 plan=plan)
+    got = tree_from_regions(slots[0], regs)
+    _sync(torch)
+    b_s = time.perf_counter() - t0
+    _assert_equal(torch, got, slots[0], "(b) rank 0 from partner copies")
+    b_gets = sum(len(f.failed_gets) for f in flaky) + sum(
+        f.inner.get_calls - g for f, g in zip(flaky, gets0))
+    if b_gets:
+        raise AssertionError(f"(b) {b_gets} external gets")
+    del regs, got
+
+    out = {
+        "ranks_bytes": [sum(t.numel() * t.element_size() for t in s.values())
+                        for s in slots],
+        "versions": RECOVERY_VERSIONS, "write_s": write_s, "seal_s": seal_s,
+        "packs": {str(v): k for v, k in packs.items()},
+        "restart_s": {
+            "a_catalog_fresh": a_s, "b_partner_l3_down": [b_s],
+            "c_readers": c_s,
+            "d_elastic_4_to_2": [d_s / 2, d_s / 2],
+            "e_xor_rebuild": [e_s]},
+        "c_wall_s": c_wall,
+        "external_gets": {"a": a_gets, "b": b_gets,
+                          "c": sum(sum(t.get_counts.values())
+                                   for t in counting),
+                          "c_blob_gets": sorted(blob_gets.values()),
+                          "e_failed": e_failed},
+        "listings": {"a": a_listings,
+                     "c": sum(t.keys_calls for t in counting)},
+        "e_xor_rebuilds": e_xor}
+    print(f"recovery path: 4 ranks of {out['ranks_bytes']} bytes, v1 full, "
+          f"v2-v{RECOVERY_VERSIONS} deltas, write "
+          f"{[round(x, 3) for x in write_s]} s, seal {seal_s:.3f} s; (a) catalog restart per rank "
+          f"{[round(x, 3) for x in a_s]} s, 0 listings; (b) from partners "
+          f"{b_s:.3f} s, 0 external gets; (c) {RECOVERY_READERS} readers of "
+          f"v{RECOVERY_TARGET} in {c_wall:.3f} s, one get per blob; (d) "
+          f"elastic 4 -> 2 {d_s:.3f} s; (e) XOR rebuild {e_s:.3f} s; all "
+          f"equal")
+    return out
 
 
 # |loss - reference loss| per step.  Every chip run so far measured a gap of
@@ -1068,19 +1349,26 @@ def train_path(torch, scratch: Path, seed: int) -> dict:
                 "b": trainer.main(common + ["--resume", "--steps", "50"]),
                 "c": trainer.main(common + ["--mode", "off", "--steps",
                                             "40"])}
+        gru_common = common[:-1] + [str(scratch / "gru")]
+        runs["d"] = trainer.main(gru_common + [
+            "--mode", "async", "--steps", "40", "--fail-at", "35",
+            "--phase-predictor", "gru"])
         ref = reference_train(torch, seed)
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = fill
-    a, b, c = runs["a"], runs["b"], runs["c"]
+    a, b, c, d = runs["a"], runs["b"], runs["c"], runs["d"]
     for k, r in runs.items():
         if not all(math.isfinite(x) for x in r.losses) or \
                 (k != "b" and not r.losses[-1] < r.losses[0]):
             raise AssertionError(f"train run {k}: losses {r.losses}")
-    if (a.recovered_version, b.resumed_from) != (30, 40):
-        raise AssertionError(f"recovered v{a.recovered_version}, resumed "
-                             f"from v{b.resumed_from}; want v30, v40")
-    want = {"a": ref["a"], "b": ref["b"], "c": ref["a"][:35]}
+    if (a.recovered_version, b.resumed_from, d.recovered_version) != \
+            (30, 40, 30):
+        raise AssertionError(f"recovered v{a.recovered_version} and "
+                             f"v{d.recovered_version}, resumed from "
+                             f"v{b.resumed_from}; want v30, v30, v40")
+    want = {"a": ref["a"], "b": ref["b"], "c": ref["a"][:35],
+            "d": ref["a"]}
     gap = {k: max(abs(x - y) for x, y in zip(runs[k].losses, w))
            for k, w in want.items()}
     if len(a.losses) != 40 or len(b.losses) != 10 or \
@@ -1105,6 +1393,22 @@ def train_path(torch, scratch: Path, seed: int) -> dict:
             raise AssertionError(f"fresh client restored v{version}")
         _assert_tree_equal(torch, latest, b.state, "v50")
         shard_bytes = len(fresh.cluster.fetch_shard(fresh.name, 40, 0))
+    finally:
+        fresh.shutdown()
+    # (d): the GRU gate only times the backend's work, so its checkpoints
+    # and its recovered state are (a)'s, byte for byte
+    fresh = trainer.VelocClient(
+        trainer.make_pipeline(trainer.parse_args(gru_common)),
+        trainer.Cluster(trainer.TierTopology(scratch=str(scratch / "gru"))))
+    try:
+        for v in (10, 20, 30, 40):
+            regs = rst.load_rank_regions(fresh.cluster, fresh.name, v, 0)
+            _assert_tree_equal(torch, tree_from_regions(d.state, regs),
+                               ref["states"][v], f"(d) v{v} against the "
+                               f"reference's state after step {v}")
+        _assert_tree_equal(torch, d.recovered_state, ref["states"][30],
+                           "(d) state recovered at the failure")
+        _assert_tree_equal(torch, d.state, a.state, "(d) last state")
     finally:
         fresh.shutdown()
     del ref
@@ -1143,11 +1447,199 @@ def train_path(torch, scratch: Path, seed: int) -> dict:
         "step_ms_a": [x * 1e3 for x in a.step_s],
         "profile": profile,
     }
+    out["gru"] = {
+        "step_ms_gru": {k: v * 1e3 for k, v in _stats(d.step_s[1:]).items()},
+        "step_ms_ema": out["step_ms_ckpt"],
+        "overhead_gru": 1 - rate(d) / rate(c),
+        "overhead_ema": out["ckpt_overhead"],
+        "tick_host_ms_gru": {k: v * 1e3 for k, v in
+                             _stats(d.tick_s[1:]).items()},
+        "tick_host_ms_ema": {k: v * 1e3 for k, v in
+                             _stats(a.tick_s[1:]).items()},
+        "drain_s": {"gru": d.drain_s, "ema": a.drain_s},
+        "failure_wait_s": {"gru": d.failure_wait_s, "ema": a.failure_wait_s},
+        "restart_s": {"gru": d.restart_s[0], "ema": a.restart_s[0]},
+        "app_blocking_s": d.app_blocking_s,
+        "loss_gap_to_reference": gap["d"],
+        "step_ms_d": [x * 1e3 for x in d.step_s],
+        "card_vs_cpu": gru_gate_check(torch, d.step_s, seed)}
     print(f"train path: veloc-demo-100m at full width, batch 8 x 256; "
           f"median step {out['step_ms_no_ckpt']['median']:.2f} ms without "
           f"checkpoints, {out['step_ms_ckpt']['median']:.2f} ms with; "
           f"overhead {out['ckpt_overhead']:.4f}; v10-v50 equal to the "
           f"reference's states; recovered v30, resumed v40")
+    return out
+
+
+# GRU phase gate, card against the plain CPU version: each tick from the
+# same parameters, history and replay draws, both held against the same
+# tick in float64 on the CPU.  Online SGD on step times with multi-second
+# stalls can amplify f32 rounding within one tick, so the card passes when
+# its largest error against float64 is at most GRU_ERR_RATIO times the CPU
+# f32 version's, or below GRU_ERR_FLOOR (errors: |x - f64| / max(1, |f64|)
+# of the normalised prediction).
+GRU_ERR_RATIO = 10.0
+GRU_ERR_FLOOR = 1e-5
+# |card - CPU| of the interval MLP's efficiency after the same fit
+INTERVAL_ABS_TOL = 1e-3
+
+
+def gru_gate_check(torch, durations, seed: int, ticks: int = 300) -> dict:
+    """The GRU phase gate on the card (its CUDA graphs on its own stream)
+    against the plain CPU version, fed the same stream: ``durations`` (the
+    step times of train run (d)) cycled to ``ticks`` steps, past the
+    256-deep history.  Before each tick the CPU copies, one in float32 and
+    one in float64, take the card's parameters, so all three tick from the
+    same state; each tick's prediction is held as ``GRU_ERR_RATIO`` says.
+    Also reported, not held: the gap to a float32 CPU copy left to run free
+    from the same first parameters, where rounding compounds from tick to
+    tick.  The card's ``tick("step_end")`` host time is taken alone,
+    without the read (the loop never waits for the prediction); the device
+    time of one full tick's graph is timed with CUDA events."""
+    from repro_torch.core.phases import GRUPhasePredictor
+    from repro_torch.train.steps import gru_params_from_numpy
+
+    def params(p):
+        return {k: t.detach().cpu().numpy() for k, t in p.params.items()}
+
+    def err(x, ref):
+        return abs(x - ref) / max(1.0, abs(ref))
+
+    card = GRUPhasePredictor(seed=seed, device="cuda", clock=lambda: 0.0)
+    cpu = GRUPhasePredictor(seed=seed, device="cpu", clock=lambda: 0.0)
+    f64 = GRUPhasePredictor(seed=seed, device="cpu", clock=lambda: 0.0)
+    with torch.no_grad():  # float64 parameters and learning rate
+        for p in f64.params.values():
+            p.data = p.data.double()
+        f64._lr = f64._lr.double()
+    free = GRUPhasePredictor(seed=seed, device="cpu", clock=lambda: 0.0)
+    gru_params_from_numpy(free, params(card))
+    card_err = cpu_err = card_cpu = free_gap = 0.0
+    t, tick_s, cpu_s = 0.0, [], []
+    for i in range(ticks):
+        dur = float(durations[i % len(durations)])
+        start = params(card)
+        gru_params_from_numpy(cpu, start)
+        with torch.no_grad():
+            for k, p in f64.params.items():
+                p.copy_(torch.from_numpy(start[k]))
+        for p in (card, cpu, f64, free):
+            p.tick("step_begin", t)
+        t0 = time.perf_counter()
+        card.tick("step_end", t + dur)
+        tick_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        cpu.tick("step_end", t + dur)
+        cpu_s.append(time.perf_counter() - t0)
+        for p in (f64, free):
+            p.tick("step_end", t + dur)
+        if card._pred is not None:
+            a, b, ref = (p._pred.value() for p in (card, cpu, f64))
+            card_err = max(card_err, err(a, ref))
+            cpu_err = max(cpu_err, err(b, ref))
+            card_cpu = max(card_cpu, err(a, b))
+        a, b = card.predict_next_duration(), free.predict_next_duration()
+        free_gap = max(free_gap, abs(a - b) / abs(b))
+        t += dur + 0.001
+    if not card_err <= max(GRU_ERR_FLOOR, GRU_ERR_RATIO * cpu_err):
+        raise AssertionError(f"GRU gate: card error {card_err} against "
+                             f"float64, CPU float32's {cpu_err}")
+    # device time of one full tick's graph (the SGD steps of 1 + replay
+    # windows, then the prediction) on the predictor's stream
+    graph = card._graphs[1 + card.replay][0]
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.cuda.stream(card._stream):
+        e0.record()
+        for _ in range(20):
+            graph.replay()
+        e1.record()
+    torch.cuda.synchronize()
+    trained = [x for i, x in enumerate(tick_s) if i >= card.window]
+    cpu_trained = [x for i, x in enumerate(cpu_s) if i >= cpu.window]
+    return {"ticks": ticks, "max_err_card_vs_f64": card_err,
+            "max_err_cpu_f32_vs_f64": cpu_err, "max_gap_card_vs_cpu":
+            card_cpu, "ratio": GRU_ERR_RATIO, "floor": GRU_ERR_FLOOR,
+            "max_rel_gap_free_running": free_gap,
+            "tick_graph_device_ms": e0.elapsed_time(e1) / 20,
+            "tick_host_ms_card": {k: v * 1e3 for k, v in
+                                  _stats(trained).items()},
+            "tick_host_ms_cpu_eager": {k: v * 1e3 for k, v in
+                                       _stats(cpu_trained).items()}}
+
+
+def interval_check(torch, seed: int) -> dict:
+    """``MLIntervalOptimizer`` fitted on the card (500 epochs on simulator
+    samples of 10 scenarios x 8 intervals, as the JAX package's test and
+    benchmark fit it) against the plain CPU fit from the same parameters
+    and epoch permutations; its best interval for a held-out scenario
+    beside the simulator's best on the same grid and Young/Daly."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.core.interval import (KNNIntervalBaseline, LevelCfg,
+                                           MLIntervalOptimizer,
+                                           MultiLevelSimulator, ScenarioCfg,
+                                           young_daly)
+    from repro_torch.train.steps import interval_params_from_numpy
+
+    def scenario(mtbf):
+        return ScenarioCfg(levels=[
+            LevelCfg("L1", write_s=2.0, blocking_frac=1.0, mtbf_s=mtbf,
+                     recovery_s=30.0),
+            LevelCfg("L3", write_s=60.0, blocking_frac=0.05,
+                     mtbf_s=mtbf * 8, recovery_s=300.0)])
+
+    rng = np.random.default_rng(seed)
+    samples = []
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sc = scenario(float(rng.uniform(3_000, 60_000)))
+        sim = MultiLevelSimulator(sc, horizon_s=60_000,
+                                  seed=int(rng.integers(1e6)))
+        for iv in np.geomspace(60, 15_000, 8):
+            samples.append((sc, float(iv), sim.efficiency(iv, trials=4)))
+    sample_s = time.perf_counter() - t0
+    card = MLIntervalOptimizer(hidden=48, seed=seed, device="cuda")
+    cpu = MLIntervalOptimizer(hidden=48, seed=seed, device="cpu")
+    interval_params_from_numpy(cpu, {k: p.detach().cpu().numpy()
+                                     for k, p in card.params.items()})
+    t0 = time.perf_counter()
+    loss = card.fit(samples, epochs=500, lr=5e-3)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss = cpu.fit(samples, epochs=500, lr=5e-3)
+    cpu_fit_s = time.perf_counter() - t0
+    sc = scenario(17_000.0)
+    grid = np.geomspace(60, 15_000, 16)
+    a = np.array([card.predict_eff(sc, g) for g in grid])
+    b = np.array([cpu.predict_eff(sc, g) for g in grid])
+    gap = float(np.abs(a - b).max())
+    if not gap <= INTERVAL_ABS_TOL:
+        raise AssertionError(f"interval MLP: card vs CPU gap {gap}")
+    top2 = np.sort(b)[-2:]
+    best = card.best_interval(sc, grid=grid)
+    if top2[1] - top2[0] > INTERVAL_ABS_TOL and \
+            best != cpu.best_interval(sc, grid=grid):
+        raise AssertionError("interval MLP: card and CPU pick other points")
+    sim = MultiLevelSimulator(sc, horizon_s=60_000, seed=99)
+    truth, truth_eff = sim.best_interval(grid=grid, trials=6)
+    knn = KNNIntervalBaseline(k=3)
+    knn.fit(samples)
+    cost = sum(lv.write_s * lv.blocking_frac for lv in sc.levels)
+    mtbf = 1 / sum(1 / lv.mtbf_s for lv in sc.levels)
+    yd = young_daly(cost, mtbf)
+    out = {"samples": len(samples), "sample_s": sample_s, "fit_s": fit_s,
+           "cpu_fit_s": cpu_fit_s, "loss": loss, "cpu_loss": cpu_loss,
+           "max_abs_gap": gap, "tol": INTERVAL_ABS_TOL,
+           "best_interval_s": {"ml": best, "simulator": float(truth),
+                               "knn": knn.best_interval(sc, grid=grid),
+                               "young_daly": yd},
+           "efficiency": {"ml": sim.efficiency(best, trials=6),
+                          "simulator": truth_eff,
+                          "young_daly": sim.efficiency(yd, trials=6)}}
+    if not all(math.isfinite(x) for x in out["efficiency"].values()):
+        raise AssertionError(f"interval: {out['efficiency']}")
     return out
 
 
@@ -1419,6 +1911,13 @@ def main(argv=None) -> int:
     print(f"q8 path {json.dumps(q8)}")
     ring, by_path["ring"] = run_path(
         "ring path", ("xor_pair",), lambda: ring_path(torch, leaves))
+    recovery, by_path["recovery"] = run_path(
+        "recovery path", ("checksum", "xor_reduce"),
+        lambda: recovery_path(torch, leaves, scratch / "recovery",
+                              args.seed + 4))
+    shutil.rmtree(scratch / "recovery", ignore_errors=True)
+    recovery["launches"] = by_path["recovery"]
+    print(f"recovery path {json.dumps(recovery)}")
     big_n = max(t.numel() for _, t in leaves)
     del leaves, ranks
     train, by_path["train"] = run_path(
@@ -1426,7 +1925,11 @@ def main(argv=None) -> int:
         lambda: train_path(torch, scratch / "train", args.seed))
     shutil.rmtree(scratch / "train", ignore_errors=True)
     train["launches"] = by_path["train"]
+    gru = train.pop("gru")
     print(f"train path {json.dumps(train)}")
+    print(f"gru gate {json.dumps(gru)}")
+    interval = interval_check(torch, args.seed)
+    print(f"interval optimizer {json.dumps(interval)}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],

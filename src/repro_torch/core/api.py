@@ -38,7 +38,7 @@ from repro_torch.core.capture import (DeviceDeltaCapture, iter_host_regions,
                                       snapshot_device, tree_from_regions)
 from repro_torch.core.future import CheckpointFuture
 from repro_torch.core.modules import CheckpointContext
-from repro_torch.core.phases import EMAPhasePredictor
+from repro_torch.core.phases import EMAPhasePredictor, GRUPhasePredictor
 from repro_torch.core.pipeline import ModuleSpec, PipelineSpec
 from repro_torch.core.storage import (RollingBatch, StorageTier, TierSpec,
                                 TierTopology, WriteBatch,
@@ -2208,9 +2208,7 @@ class VelocClient:
         if spec.phase_predictor == "ema":
             self.predictor = EMAPhasePredictor()
         elif spec.phase_predictor == "gru":
-            raise NotImplementedError(
-                'phase_predictor="gru" is not ported yet (ROADMAP.md queue '
-                "1, item 8)")
+            self.predictor = GRUPhasePredictor()
         if self.predictor is not None:
             self.cluster.phase_gate = self.predictor.idle_wait
         self.backend = None

@@ -53,6 +53,18 @@ def get_device() -> torch.device:
     return _device
 
 
+def check_device(device=None) -> torch.device:
+    """``device`` (the package's device when None) as a ``torch.device``;
+    a CUDA device with no GPU raises: the port never falls back to the
+    CPU unasked."""
+    device = torch.device(_device if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: the device is cuda but no GPU is available (pass "
+            "device='cpu' to run on the CPU)")
+    return device
+
+
 def _on_device(t: torch.Tensor) -> bool:
     """Whether ``t`` already lies on the package's device ("cuda" matches
     any CUDA device: the wrappers launch on the tensor's own)."""

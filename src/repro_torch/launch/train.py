@@ -45,6 +45,9 @@ class TrainRun:
     #: per step: batch, train step, loss read and checkpoint call (the
     #: failure simulation's recovery is in ``restart_s`` instead)
     step_s: list = field(default_factory=list)
+    #: per step: the two ``client.tick`` calls (the phase gate's update on
+    #: the loop's thread)
+    tick_s: list = field(default_factory=list)
     #: per checkpoint call, ``results["app_blocking_s"]``
     app_blocking_s: list = field(default_factory=list)
     #: from the end of the loop until the backend has drained
@@ -201,6 +204,7 @@ def main(argv=None) -> TrainRun:
         t0 = time.perf_counter()
         if client:
             client.tick("step_begin")
+            tick = time.perf_counter() - t0
         batch = stream.batch(step)
         if capture:
             state, snap, metrics = step_fn(state, batch)
@@ -208,7 +212,9 @@ def main(argv=None) -> TrainRun:
             state, metrics = step_fn(state, batch)
             snap = None
         if client:
+            t1 = time.perf_counter()
             client.tick("step_end")
+            run.tick_s.append(tick + time.perf_counter() - t1)
         loss = float(metrics["loss"])
         run.losses.append(loss)
         if client and args.ckpt_every and (step + 1) % args.ckpt_every == 0:

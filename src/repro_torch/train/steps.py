@@ -28,19 +28,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.capture import (leaves_with_paths, map_tree,
                                       snapshot_device)
+from repro_torch.kernels.ops import check_device
 from repro_torch.models.model import init_model, make_loss_fn
 from repro_torch.train import optimizer as opt_lib
-
-
-def check_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device with no GPU raises:
-    the port never falls back to the CPU unasked."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch: the device is cuda but no GPU is available (pass "
-            "device='cpu' to run on the CPU)")
-    return device
 
 
 def init_train_state(cfg: ModelConfig, *, generator: torch.Generator = None,
@@ -90,6 +80,34 @@ def state_from_numpy(tree, device="cuda"):
         return torch.from_numpy(arr).to(device)
 
     return map_tree(conv, tree)
+
+
+def _load_params(targets: dict, arrays: dict) -> None:
+    """Copy numpy ``arrays`` into the tensors of ``targets`` in place (same
+    keys, shapes; f32), so whatever holds the tensors — a captured CUDA
+    graph, an optimizer — goes on using them."""
+    if set(targets) != set(arrays):
+        raise KeyError(f"parameters {sorted(arrays)} != {sorted(targets)}")
+    with torch.no_grad():
+        for k, t in targets.items():
+            a = np.asarray(arrays[k], np.float32)
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{k}: shape {a.shape} != {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(a.copy()))
+
+
+def gru_params_from_numpy(predictor, arrays: dict) -> None:
+    """Load a ``GRUPhasePredictor``'s parameters (``wz``, ``wr``, ``wh``,
+    ``wo`` as numpy arrays, e.g. the JAX predictor's) into the port's
+    ``predictor`` on its device."""
+    _load_params(predictor.params, arrays)
+
+
+def interval_params_from_numpy(optimizer, arrays: dict) -> None:
+    """Load an ``MLIntervalOptimizer``'s MLP (``w1``, ``b1``, ..., ``b3``
+    as numpy arrays, e.g. the JAX optimizer's) into the port's
+    ``optimizer`` on its device."""
+    _load_params(optimizer.params, arrays)
 
 
 def _numpy_bfloat16() -> np.dtype:

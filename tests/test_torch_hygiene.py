@@ -58,8 +58,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_import_walk_covers_the_workload_modules():
-    """The walk above reaches the training workload's modules (each
-    subpackage has an ``__init__``)."""
+    """The walk above reaches the training workload's modules and the
+    predictors (each subpackage has an ``__init__``)."""
     import pkgutil
 
     import repro_torch
@@ -69,7 +69,8 @@ def test_import_walk_covers_the_workload_modules():
     assert {"repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.models.model", "repro_torch.train.optimizer",
             "repro_torch.train.data", "repro_torch.train.steps",
-            "repro_torch.launch.train"} <= names
+            "repro_torch.launch.train", "repro_torch.core.phases",
+            "repro_torch.core.interval"} <= names
 
 
 def _imported_roots(path):

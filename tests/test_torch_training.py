@@ -277,7 +277,22 @@ def test_trainer_cuda_without_gpu_raises(tmp_path):
         trainer.main(["--smoke", "--steps", "1", "--scratch", str(tmp_path)])
 
 
-def test_trainer_gru_phase_predictor_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trainer.main(["--smoke", "--device", "cpu", "--steps", "1",
-                     "--phase-predictor", "gru", "--scratch", str(tmp_path)])
+def test_trainer_gru_phase_predictor_raises(tmp_path, capsys):
+    """``--phase-predictor gru`` trains the GRU gate on the trainer's
+    device: on the CPU the run recovers from its simulated failure; a CUDA
+    device with no GPU raises, in the trainer and in the predictor."""
+    run = trainer.main(["--arch", "veloc-demo-100m", "--smoke", "--device",
+                        "cpu", "--phase-predictor", "gru", "--steps", "12",
+                        "--ckpt-every", "4", "--fail-at", "10",
+                        "--seq-len", "32", "--batch", "2",
+                        "--scratch", str(tmp_path)])
+    assert "[failure-sim] recovered at v8" in capsys.readouterr().out
+    assert run.recovered_version == 8 and np.isfinite(run.losses).all()
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no GPU"):
+        trainer.main(["--smoke", "--steps", "1", "--phase-predictor", "gru",
+                      "--scratch", str(tmp_path / "cuda")])
+    from repro_torch.core.phases import GRUPhasePredictor
+    with pytest.raises(RuntimeError, match="no GPU"):
+        GRUPhasePredictor(device="cuda")
