@@ -82,9 +82,30 @@ any failure (the script then exits non-zero):
      predictions within ``INTERVAL_ABS_TOL``, and an ``interval optimizer
      {...}`` line with the fitted best interval beside the simulator's
      best and Young/Daly;
+  7c. the recurrent scans (``recurrent_scans``): the chunkwise mLSTM at
+     xlstm-1.3b's shape and the log-depth RG-LRU scan at
+     recurrentgemma-2b's, each within ``SCAN_ERR_RATIO`` times its f32
+     reference form's error against a float64 run (a ``recurrent scans
+     {...}`` line);
+  7d. the xlstm train path (``xlstm_train_path``): xlstm-1.3b whole (48
+     layers, a 22.17 GB train state) through the trainer with a checkpoint
+     every 3 steps, a failure after step 4 and recovery from v3,
+     ``--capture standalone``; every version read back by a fresh client,
+     the recovered and the last state held against a replay without
+     checkpoints by per-leaf tables computed on the card; an ``xlstm
+     train path {...}`` line (step times, overhead, app blocking, waits,
+     drain, restarts, peak device memory, host RSS, when the device
+     snapshot was released, a profiled step) and, from the restored
+     state, an ``xlstm decode {...}`` line (``decode_check``: prefill of
+     240 tokens and 16 decode steps against the forward pass, f32 and
+     float64);
+  7e. recurrentgemma-2b cut to its first 3 layers at full width
+     (``recurrentgemma_step``): 10 steps and its decode check (a
+     ``recurrentgemma step {...}`` line);
   8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
-     checksum rows, and the train path's one-rank shard; the XOR group's words in the aligned row layout of
+     checksum rows, the train path's one-rank shard and the xlstm path's
+     largest region; the XOR group's words in the aligned row layout of
      ``ops.xor_reduce``; the largest leaf's and the 0-d ``opt/step`` leaf's
      words in 64 KiB rows for the block hash and its fused diff; the dirty
      rows of a 1% version of the largest leaf for the gather; the largest
@@ -178,11 +199,12 @@ def _max_abs_err(torch, a, b) -> int:
 
 
 def check_kernels(torch, gen, shard_rows: int, xor_words: int,
-                  train_rows: int) -> dict:
+                  train_rows: int, xlstm_rows: int) -> dict:
     """Phase 8: every kernel against its plain version, bit-exact, at small
-    shapes, at the main path's ``shard_rows`` and ``xor_words`` and at the
-    train path's ``train_rows`` (its one-rank shard); the times kept are
-    the main path's."""
+    shapes, at the main path's ``shard_rows`` and ``xor_words``, at the
+    train path's ``train_rows`` (its one-rank shard) and at the xlstm
+    path's largest region, ``xlstm_rows``; the times kept are the main
+    path's, and the xlstm region's beside them."""
     import numpy as np
 
     from repro_torch.kernels import checksum as ck
@@ -191,7 +213,7 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int,
 
     stats = {}
     errs = []
-    for rows in (1, 65, train_rows, shard_rows):
+    for rows in (1, 65, train_rows, xlstm_rows, shard_rows):
         x = _random_words(torch, gen, (rows, 2048))
         got, want = ck.checksum(x), ref.checksum_ref(x)
         torch.cuda.synchronize()
@@ -207,7 +229,10 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int,
               f"bound {bound:.4f} ms, plain {plain_ms:.4f} ms")
         stats["checksum"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                  shape=[rows, 2048])
+        if rows == xlstm_rows:
+            xlstm = dict(stats["checksum"])
         del x, got, want
+    stats["checksum"]["xlstm"] = xlstm
     stats["checksum"]["max_abs_err"] = max(errs)
 
     errs = []
@@ -1717,6 +1742,580 @@ def profile_train_steps(torch, seed: int, scratch: Path,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent family: xlstm-1.3b and recurrentgemma-2b at full width
+# ---------------------------------------------------------------------------
+
+#: the f32 form's error against a float64 run of the reference form may be
+#: at most this many times the f32 reference form's own
+SCAN_ERR_RATIO = 10.0
+#: the xlstm train path: steps, a checkpoint every XLSTM_EVERY steps, the
+#: simulated failure after step XLSTM_FAIL (recovery from the version before)
+XLSTM_STEPS, XLSTM_EVERY, XLSTM_FAIL = 6, 3, 4
+#: the decode checks: prompt tokens, decode steps and rows, and the
+#: tolerance (rtol and atol) of tests/test_recurrent_equiv.py
+DECODE_PROMPT, DECODE_STEPS, DECODE_ROWS = 240, 16, 2
+DECODE_TOL = 3e-2
+#: recurrentgemma-2b cut to one period of its pattern (rglru, rglru,
+#: local_attn) at full width and vocabulary: layers, steps, parameters
+RG_LAYERS, RG_STEPS, RG_PARAMS = 3, 10, 1_567_680_000
+
+
+def _rel_err(x, ref) -> float:
+    """max |x - ref| over max |ref| (ref float64)."""
+    return float((x.double() - ref).abs().max() / ref.abs().max())
+
+
+def recurrent_scans(torch, seed: int) -> dict:
+    """The two recurrences at full-width shapes, each f32 form and its f32
+    reference form held against a float64 run of the reference form on the
+    card: ``mlstm_chunkwise`` against ``mlstm_recurrent`` at xlstm-1.3b's
+    (B 8, T 256, H 4, head dim 1024; the tests' gate distributions), and
+    the log-depth ``linear_scan`` against ``linear_scan_loop`` at
+    recurrentgemma-2b's (B 8, T 256, width 2560; a from the RG-LRU gate's
+    formula over its initial lambda range).  The f32 form passes when its
+    error is at most ``SCAN_ERR_RATIO`` times the f32 reference's."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrent as R
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = get_config("xlstm-1.3b")
+    B, T, H = 8, 256, cfg.num_heads
+    hd = 2 * cfg.d_model // H
+    q, k, v = (torch.randn((B, T, H, hd), generator=gen, device="cuda")
+               for _ in range(3))
+    log_i = torch.randn((B, T, H), generator=gen, device="cuda") - 1.0
+    log_f = -torch.randn((B, T, H), generator=gen, device="cuda").abs() * 0.1
+    carry64 = tuple(t.double() for t in R.mlstm_carry_init(cfg, B, "cuda"))
+    ref = R.mlstm_recurrent(q, k, v, log_i, log_f, carry64)[0]
+    out = {"mlstm": {
+        "shape": [B, T, H, hd],
+        "err_chunkwise_f32": _rel_err(
+            R.mlstm_chunkwise(q, k, v, log_i, log_f)[0], ref),
+        "err_recurrent_f32": _rel_err(
+            R.mlstm_recurrent(q, k, v, log_i, log_f)[0], ref),
+        "ms_chunkwise": _cuda_ms(
+            torch, lambda: R.mlstm_chunkwise(q, k, v, log_i, log_f), reps=5),
+        "ms_recurrent": _cuda_ms(
+            torch, lambda: R.mlstm_recurrent(q, k, v, log_i, log_f), reps=2,
+            warmup=1)}}
+    del q, k, v, ref, carry64
+    rg = get_config("recurrentgemma-2b")
+    w = rg.lru_width
+    lam = torch.rand((w,), generator=gen, device="cuda") * 2.3 - 4.3
+    r = torch.rand((B, T, w), generator=gen, device="cuda")
+    a = torch.exp(-R.RGLRU_C * F.softplus(lam) * r)
+    b = torch.sqrt(1.0 - a * a) * torch.randn((B, T, w), generator=gen,
+                                              device="cuda")
+    ref = R.linear_scan_loop(a.double(), b.double())
+    out["rglru"] = {
+        "shape": [B, T, w],
+        "err_scan_f32": _rel_err(R.linear_scan(a, b), ref),
+        "err_loop_f32": _rel_err(R.linear_scan_loop(a, b), ref),
+        "ms_scan": _cuda_ms(torch, lambda: R.linear_scan(a, b), reps=5),
+        "ms_loop": _cuda_ms(torch, lambda: R.linear_scan_loop(a, b),
+                            reps=2, warmup=1)}
+    for name, fast, slow in (("mlstm", "err_chunkwise_f32",
+                              "err_recurrent_f32"),
+                             ("rglru", "err_scan_f32", "err_loop_f32")):
+        o = out[name]
+        if not o[fast] <= SCAN_ERR_RATIO * o[slow]:
+            raise AssertionError(f"{name}: f32 error {o[fast]} against "
+                                 f"float64 exceeds {SCAN_ERR_RATIO} x the "
+                                 f"reference form's {o[slow]}")
+    return out
+
+
+def state_tables(torch, tree) -> dict:
+    """Per leaf of ``tree`` (tensors on the card, or host arrays), the
+    (rows, 2) Fletcher table of its bytes, computed on the card by the
+    port's checksum kernel (``ops.fletcher_chunks``): 1/1024 of the bytes
+    stand for a 22 GB state."""
+    from repro_torch.core.capture import leaves_with_paths
+    from repro_torch.kernels import ops
+
+    return {name: ops.fletcher_chunks(leaf)
+            for name, leaf in leaves_with_paths(tree)}
+
+
+def _assert_tables_equal(got: dict, want: dict, what: str):
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: leaf names differ")
+    for k, t in want.items():
+        if not np.array_equal(got[k], t):
+            raise AssertionError(f"{what}: leaf {k!r} differs")
+
+
+class MemorySampler:
+    """A thread that reads ``torch.cuda.memory_allocated()`` every
+    ``period`` seconds, each reading beside ``time.monotonic()``."""
+
+    def __init__(self, torch, period: float = 0.05):
+        import threading
+
+        self.samples: list = []
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.wait(period):
+                self.samples.append((time.monotonic(),
+                                     torch.cuda.memory_allocated()))
+
+        self._thread = threading.Thread(target=run, name="memory-sampler",
+                                        daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def snapshot_release(samples: list, results: dict, state_bytes: int
+                     ) -> dict:
+    """When the backend dropped a standalone checkpoint's device snapshot:
+    the first reading after the call at which the allocated bytes fell by
+    at least half the state at once (a step frees at most its gradients,
+    a third of it), beside the end of the device-to-host copy and of the
+    L3 flush, all in seconds after the call (the first stage's end)."""
+    t_call = min(v for k, v in results.items() if k.endswith(".done_at"))
+    released = None
+    for (_, before), (t, after) in zip(samples, samples[1:]):
+        if t > t_call and before - after >= state_bytes // 2:
+            released = t
+            break
+    flush = results.get("l3-flush.done_at")
+    out = {"released_s": None if released is None else released - t_call,
+           "d2h_done_s": results["d2h_done_at"] - t_call,
+           "flush_done_s": None if flush is None else flush - t_call}
+    if released is None or (flush is not None and released >= flush):
+        raise AssertionError(f"device snapshot not released before the L3 "
+                             f"flush ended: {out}")
+    return out
+
+
+def _host_memory() -> dict:
+    """This process's resident set now and at its peak, GiB."""
+    import resource
+
+    rss = None
+    for line in Path("/proc/self/status").read_text().splitlines():
+        key, _, val = line.partition(":")
+        if key == "VmRSS":
+            rss = int(val.split()[0]) / 2**20
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return {"rss_gib": rss, "peak_rss_gib": peak}
+
+
+def _profile_step(torch, fn, trace: Path) -> dict:
+    """One call of ``fn`` (a train step ending in a read of its loss) under
+    ``torch.profiler`` (device activity only): kernels launched, device
+    busy ms (the union of kernels and copies) and the profiled wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    gpu = [e for e in _load_trace(trace)
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    trace.unlink()
+    busy, last = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu):
+        busy += max(0.0, b - max(a, last))
+        last = max(last, b)
+    return {"kernels": sum(1 for e in gpu if e["cat"] == "kernel"),
+            "device_busy_ms": busy / 1e3, "wall_ms_profiled": wall * 1e3}
+
+
+def xlstm_reference(torch, seed: int, trace: Path) -> dict:
+    """The xlstm train path's run replayed with the trainer's own parts and
+    no checkpoint: steps 1 to ``XLSTM_FAIL``, then from a device copy of
+    the state after step r (the version the failure recovers) the batches
+    of the steps after the failure, as the trainer goes on after its
+    recovery.  Returns the losses in the run's order, the step times (the
+    first holds each operator's first use; the step after the failure is
+    profiled, ``_profile_step``) and, per checkpointed step, the state's
+    per-leaf tables (``state_tables``): what each version must hold."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core.capture import snapshot_device
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = get_config("xlstm-1.3b")
+    state = init_train_state(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+    stream = SyntheticStream(cfg, ShapeCfg("cli", 256, 8, "train"),
+                             seed=1234, device="cuda")
+    step = make_train_step(cfg, lr=3e-4)
+    r = XLSTM_FAIL - XLSTM_FAIL % XLSTM_EVERY
+    out = {"losses": [], "step_s": [], "tables": {}}
+    kept = None
+
+    def one(state, i):
+        t0 = time.perf_counter()
+        state, m = step(state, stream.batch(i))
+        out["losses"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        return state
+
+    for i in range(XLSTM_FAIL):
+        if i == XLSTM_FAIL - 1:  # the step the failure throws away
+            out["profile"] = _profile_step(
+                torch, lambda: one(state, i), trace)
+            out["step_s"].pop()
+        else:
+            state = one(state, i)
+        if (i + 1) % XLSTM_EVERY == 0:
+            out["tables"][i + 1] = state_tables(torch, state)
+        if i + 1 == r:
+            kept = snapshot_device(state).tree
+    state = kept
+    del kept
+    for i in range(XLSTM_FAIL, XLSTM_STEPS):
+        state = one(state, i)
+        if (i + 1) % XLSTM_EVERY == 0:
+            out["tables"][i + 1] = state_tables(torch, state)
+    out["recovered"] = r
+    return out
+
+
+def xlstm_run(torch, scratch: Path, seed: int) -> dict:
+    """The trainer ``repro_torch.launch.train --arch xlstm-1.3b`` at full
+    width and depth (48 layers, 1,847,216,464 parameters; f32 with AdamW
+    moments, 22.17 GB), batch 8 x 256, bf16 compute, a checkpoint every
+    ``XLSTM_EVERY`` steps through the one-rank async pipeline, the
+    simulated failure after ``XLSTM_FAIL`` and recovery, ``--capture
+    standalone`` (``xlstm_train_path`` says why) and ``--keep-versions 1``;
+    the device memory sampled throughout."""
+    from repro_torch.launch import train as trainer
+
+    common = ["--arch", "xlstm-1.3b", "--seq-len", "256", "--batch", "8",
+              "--ckpt-every", str(XLSTM_EVERY), "--seed", str(seed),
+              "--scratch", str(scratch), "--capture", "standalone",
+              "--keep-versions", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    with MemorySampler(torch) as mem:
+        run = trainer.main(common + ["--mode", "async", "--steps",
+                                     str(XLSTM_STEPS), "--fail-at",
+                                     str(XLSTM_FAIL)])
+    return {"run": run, "args": common, "samples": mem.samples,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "host": _host_memory()}
+
+
+def xlstm_restart(torch, scratch: Path, args: list, template) -> tuple:
+    """A fresh client over the same scratch directory (only the persistent
+    tiers survive): ``restart_latest`` onto the card."""
+    from repro_torch.launch import train as trainer
+
+    fresh = trainer.VelocClient(
+        trainer.make_pipeline(trainer.parse_args(args)),
+        trainer.Cluster(trainer.TierTopology(scratch=str(scratch))))
+    try:
+        t0 = time.perf_counter()
+        version, latest = fresh.restart_latest(template)
+        torch.cuda.synchronize()
+        return version, latest, time.perf_counter() - t0
+    finally:
+        fresh.shutdown()
+
+
+def _prefill_decode(torch, cfg, params, tokens) -> tuple:
+    """The prefill's last logits and each decoded token's, (B, 1 +
+    ``DECODE_STEPS``, V), and the host ms of the prefill and of each decode
+    step."""
+    from repro_torch.models.model import make_decode_fn, make_prefill_fn
+
+    S = tokens.shape[1]
+    decode = make_decode_fn(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = make_prefill_fn(cfg, cache_len=S)(
+        params, {"tokens": tokens[:, :DECODE_PROMPT]})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    rows, step_ms = [last], []
+    for pos in range(DECODE_PROMPT, S):
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, tokens[:, pos:pos + 1], pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(lg)
+    return torch.stack(rows, dim=1), prefill_ms, step_ms
+
+
+def decode_check(torch, cfg, params, seed: int) -> dict:
+    """``lm_prefill`` of ``DECODE_PROMPT`` tokens into caches sized for
+    the whole context, then ``DECODE_STEPS`` ``lm_decode_step``s: each row
+    (the prefill's last logits, then each decoded token's) against
+    ``lm_forward``'s logits at that position, within ``DECODE_TOL`` (the
+    JAX test's rtol and atol).  Run in f32 compute, and in float64 (the
+    same code on the parameters cast to float64).  The float64 rows are
+    held; the f32 rows are held too where the f32 forward itself lies
+    within ``DECODE_TOL`` of the float64 forward.  Past that, rounding
+    amplified through a deep stack, not prefill or decode, decides the f32
+    gap (PERF.md §6), and it is reported only.  ``params`` lie on the
+    card."""
+    from repro_torch.core.capture import map_tree
+    from repro_torch.models.transformer import lm_forward
+
+    S = DECODE_PROMPT + DECODE_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (DECODE_ROWS, S),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    V = cfg.vocab_size  # the padded vocab's columns are masked to -1e30
+    out = {"prompt": DECODE_PROMPT, "steps": DECODE_STEPS,
+           "rows": DECODE_ROWS}
+    fwd = {}
+    with torch.no_grad():
+        for name, dt in (("f32", "float32"), ("f64", "float64")):
+            c = cfg.replace(compute_dtype=dt)
+            p = params if dt == "float32" else map_tree(
+                lambda _, t: t.double(), params)
+            full = lm_forward(p, c, tokens)[:, DECODE_PROMPT - 1:, :V]
+            rows, prefill_ms, step_ms = _prefill_decode(torch, c, p, tokens)
+            rows = rows[..., :V]
+            del p
+            fwd[name] = full
+            out[name] = {
+                "finite": bool(torch.isfinite(rows).all()),
+                "gap": float((rows - full).abs().max()),
+                "gap_per_row": (rows - full).abs().amax(dim=(0, 2)).tolist(),
+                "within_tol": bool(torch.allclose(
+                    rows, full, rtol=DECODE_TOL, atol=DECODE_TOL)),
+                "prefill_ms": prefill_ms,
+                "decode_ms_per_step": _stats(step_ms)}
+    out["forward_f32_vs_f64"] = float(
+        (fwd["f32"].double() - fwd["f64"]).abs().max())
+    out["logit_absmax"] = float(fwd["f64"].abs().max())
+    out["f32_held"] = out["forward_f32_vs_f64"] <= DECODE_TOL
+    out["ok"] = out["f32"]["finite"] and out["f64"]["finite"] and \
+        out["f64"]["within_tol"] and (out["f32"]["within_tol"]
+                                      or not out["f32_held"])
+    return out
+
+
+def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> dict:
+    """The xlstm-1.3b train path at full width and depth, then its decode:
+
+      ref. ``xlstm_reference``: the run replayed without checkpoints, per
+        checkpointed step the state's per-leaf tables (22 GB states cannot
+        be kept as device copies), its step times (the baseline rate) and
+        a profiled step;
+      a. ``xlstm_run``, the trainer with checkpoints, failure and recovery;
+      restart. a fresh client's ``restart_latest`` from the persistent
+        tiers, and the first version read back by it.
+
+    Deterministic algorithms are on for the replay and the run, so every
+    checked state equals the replay's byte for byte: each version read back
+    by the fresh client, the state recovered at the failure and the last
+    state, held by tables computed on the card (``state_tables``), and the
+    losses.  ``--capture standalone``: the fused capture clones the whole
+    state in every step and keeps the previous step's clone alive through
+    the next, so with a version still in its device-to-host copy the card
+    would hold 4 x 22.17 GB + 7.39 GB of gradients, more than its 80 GB;
+    the standalone capture clones only at a checkpoint.  The backend must
+    drop that clone when its copy to the host ends (``snapshot_release``).
+    Then ``decode_check`` from the restored parameters.  ``run_path``
+    counts the kernels of the run and of the fresh restart."""
+    import gc
+    import math
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import restart as rst
+    from repro_torch.core.capture import leaves_with_paths
+    from repro_torch.launch import train as trainer
+
+    scratch.mkdir(parents=True, exist_ok=True)
+    disk = subprocess.run(["df", "-h", str(scratch)], capture_output=True,
+                          text=True, timeout=60).stdout
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout
+    print(f"xlstm path scratch:\n{disk}{free}", end="")
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    marks = [("start", time.perf_counter())]
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ref = xlstm_reference(torch, seed, scratch / "trace.json.gz")
+            marks.append(("replay", time.perf_counter()))
+            gc.collect()
+            torch.cuda.empty_cache()
+            a, launches_run = run_path(
+                "xlstm train path", ("checksum",),
+                lambda: xlstm_run(torch, scratch, seed))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    run = a.pop("run")
+    marks.append(("run", time.perf_counter()))
+    gc.collect()
+    r = ref["recovered"]
+    if run.recovered_version != r:
+        raise AssertionError(f"recovered v{run.recovered_version}, want v{r}")
+    gap = max(abs(x - y) for x, y in zip(run.losses, ref["losses"]))
+    if len(run.losses) != XLSTM_STEPS or \
+            not all(math.isfinite(x) for x in run.losses) or \
+            gap > TRAIN_LOSS_TOL:
+        raise AssertionError(f"xlstm losses {run.losses} against the "
+                             f"replay's {ref['losses']}")
+    _assert_tables_equal(state_tables(torch, run.recovered_state),
+                         ref["tables"][r], f"state recovered at v{r}")
+    run.recovered_state = None
+    _assert_tables_equal(state_tables(torch, run.state),
+                         ref["tables"][XLSTM_STEPS], "last state")
+    sizes = [t.numel() * t.element_size()
+             for _, t in leaves_with_paths(run.state)]
+    state_bytes = sum(sizes)
+    release = snapshot_release(a["samples"], run.ckpt_results[0],
+                               state_bytes)
+    marks.append(("state checks", time.perf_counter()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    (version, latest, restart_s), launches_restart = run_path(
+        "xlstm fresh restart", ("checksum",),
+        lambda: xlstm_restart(torch, scratch, a["args"], run.state))
+    run.state = None
+    marks.append(("fresh restart", time.perf_counter()))
+    # the newest version the flush completed; v{r} when the last one's
+    # flush outlasted the trainer's final wait
+    if version not in ref["tables"]:
+        raise AssertionError(f"fresh client restored v{version}")
+    _assert_tables_equal(state_tables(torch, latest), ref["tables"][version],
+                         f"v{version} restored by a fresh client")
+    readback = {}
+    fresh = trainer.VelocClient(
+        trainer.make_pipeline(trainer.parse_args(a["args"])),
+        trainer.Cluster(trainer.TierTopology(scratch=str(scratch))))
+    try:
+        for v in sorted(ref["tables"]):
+            if v == version:
+                continue
+            t0 = time.perf_counter()
+            regs = rst.load_rank_regions(fresh.cluster, fresh.name, v, 0)
+            _assert_tables_equal(state_tables(torch, regs), ref["tables"][v],
+                                 f"v{v} read back by a fresh client")
+            readback[v] = time.perf_counter() - t0
+            del regs
+    finally:
+        fresh.shutdown()
+    marks.append(("read back", time.perf_counter()))
+    params = latest["params"]
+    del latest
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode = decode_check(torch, get_config("xlstm-1.3b"), params, seed + 5)
+    del params
+    marks.append(("decode", time.perf_counter()))
+
+    def rate(xs):
+        return len(xs) / sum(xs)
+
+    warn = sorted({f"{w.category.__name__}: {str(w.message)[:200]}"
+                   for w in caught})
+    out = {
+        "config": {"arch": "xlstm-1.3b", "layers": 48, "batch": [8, 256],
+                   "state_bytes": state_bytes, "leaves": len(sizes),
+                   "steps": XLSTM_STEPS, "ckpt_every": XLSTM_EVERY,
+                   "fail_at": XLSTM_FAIL},
+        "largest_region_rows": -(-max(sizes) // 8192),
+        "capture": "standalone (fused: 4 x 22.17 GB of state and snapshots "
+                   "+ 7.39 GB of gradients exceed the card's 80 GB)",
+        "step_ms_ckpt": {k: v * 1e3 for k, v in
+                         _stats(run.step_s[1:]).items()},
+        "step_ms_no_ckpt": {k: v * 1e3 for k, v in
+                            _stats(ref["step_s"][1:]).items()},
+        "ckpt_overhead": 1 - rate(run.step_s[1:]) / rate(ref["step_s"][1:]),
+        "app_blocking_s": run.app_blocking_s,
+        "failure_wait_s": run.failure_wait_s,
+        "drain_s": run.drain_s,
+        "restart_s": {"at_failure": run.restart_s[0], "fresh": restart_s},
+        "recovered": r, "fresh_restored": version,
+        "readback_s": readback,
+        "versions": {str(i): {k: v for k, v in res.items()
+                              if k.endswith(".status") or k in
+                              ("shard_bytes", "app_blocking_s", "errors")}
+                     for i, res in zip(range(XLSTM_EVERY, XLSTM_STEPS + 1,
+                                             XLSTM_EVERY), run.ckpt_results)},
+        "snapshot_release": release,
+        "peak_device_gb": a["peak_bytes"] / 1e9,
+        "host": a["host"],
+        "loss": {"first": run.losses[0], "last": run.losses[-1],
+                 "max_gap_to_reference": gap},
+        "profile_step": ref["profile"],
+        "idle_share_no_ckpt": 1 - ref["profile"]["device_busy_ms"] / (
+            statistics.median(ref["step_s"][1:]) * 1e3),
+        "warnings": warn,
+        "launches": {k: launches_run[k] + launches_restart[k]
+                     for k in launches_run},
+        "phase_s": {name: t - prev for (_, prev), (name, t) in
+                    zip(marks, marks[1:])}}
+    return out, decode
+
+
+def recurrentgemma_step(torch, seed: int) -> dict:
+    """recurrentgemma-2b cut to ``RG_LAYERS`` layers, one period of its
+    pattern (rglru, rglru, local_attn), at full width and with its
+    256,000-token vocabulary (``RG_PARAMS`` parameters, 18.8 GB of train
+    state): ``RG_STEPS`` train steps without checkpoints through the port's
+    own parts (batch 8 x 256, bf16 compute; losses finite), then
+    ``decode_check``."""
+    import gc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core.capture import leaves_with_paths
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = get_config("recurrentgemma-2b").replace(num_layers=RG_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+    n = sum(t.numel() for _, t in leaves_with_paths(state["params"]))
+    if n != RG_PARAMS:
+        raise AssertionError(f"recurrentgemma cut: {n} parameters")
+    stream = SyntheticStream(cfg, ShapeCfg("cli", 256, 8, "train"),
+                             seed=1234, device="cuda")
+    step = make_train_step(cfg)
+    losses, step_s = [], []
+    for i in range(RG_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, stream.batch(i))
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"recurrentgemma losses {losses}")
+    out = {"layers": RG_LAYERS, "params": n,
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for _, t in leaves_with_paths(state)),
+           "losses": losses,
+           "step_ms": {k: v * 1e3 for k, v in _stats(step_s[1:]).items()},
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    params = state["params"]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode"] = decode_check(torch, cfg, params, seed + 6)
+    return out
+
+
 def _assert_tree_equal(torch, got, want, what: str):
     from repro_torch.core.capture import leaves_with_paths
 
@@ -1930,11 +2529,26 @@ def main(argv=None) -> int:
     print(f"gru gate {json.dumps(gru)}")
     interval = interval_check(torch, args.seed)
     print(f"interval optimizer {json.dumps(interval)}")
+    scans = recurrent_scans(torch, args.seed + 7)
+    print(f"recurrent scans {json.dumps(scans)}")
+    xlstm, xdecode = xlstm_train_path(torch, scratch / "xlstm",
+                                      args.seed + 8, run_path)
+    shutil.rmtree(scratch / "xlstm", ignore_errors=True)
+    by_path["xlstm"] = xlstm["launches"]
+    print(f"xlstm train path {json.dumps(xlstm)}")
+    print(f"xlstm decode {json.dumps(xdecode)}")
+    rgemma = recurrentgemma_step(torch, args.seed + 9)
+    print(f"recurrentgemma step {json.dumps(rgemma)}")
+    for what, d in (("xlstm", xdecode), ("recurrentgemma", rgemma["decode"])):
+        if not d["ok"]:
+            raise AssertionError(f"{what} decode differs from the forward "
+                                 f"pass beyond {DECODE_TOL}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],
                           xor_words=path["xor_words"],
-                          train_rows=-(-train["shard_bytes"] // 8192))
+                          train_rows=-(-train["shard_bytes"] // 8192),
+                          xlstm_rows=xlstm["largest_region_rows"])
     stats.update(check_delta_kernels(
         torch, gen, big_words=delta["big_words"], step_words=step_words,
         dirty_rows=delta["dirty_rows"], chunk=delta["chunk_words"]))
@@ -1968,7 +2582,8 @@ def main(argv=None) -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s.get("library_ms"),
-            "wrapper_ms": s.get("wrapper_ms"), "shape": s["shape"]})
+            "wrapper_ms": s.get("wrapper_ms"), "shape": s["shape"],
+            "xlstm": s.get("xlstm")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

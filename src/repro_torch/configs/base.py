@@ -140,13 +140,16 @@ class ModelConfig:
         return count_params(self)
 
 
-#: The ported configurations: the dense family.  The JAX package's other
-#: architectures join with their model families (ROADMAP.md queue 1, item 9).
+#: The ported configurations: the dense and the recurrent families.  The
+#: JAX package's other architectures join with their model families
+#: (ROADMAP.md queue 1, item 9).
 _REGISTRY = {
     "veloc-demo-100m": "veloc_demo_100m",
     "minitron-8b": "minitron_8b",
     "yi-9b": "yi_9b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

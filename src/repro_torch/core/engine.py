@@ -62,6 +62,8 @@ class Engine:
                 continue
             status = m.process(ctx)
             ctx.results[f"{m.name}.status"] = status
+            # when the stage ended, on the ``time.monotonic`` clock
+            ctx.results[f"{m.name}.done_at"] = time.monotonic()
             if ctx.skipped:
                 break
             if status == "error":

@@ -103,7 +103,12 @@ def array_from_bytes(buf, dtype: str, shape) -> Any:
 
 def serialize_shard(regions: list[Region], meta: dict, *, encoding: str = "raw",
                     checksums: bool = True) -> bytes:
-    payload = io.BytesIO()
+    """The shard bytes: magic, header length, JSON header, then each
+    region's blob.  A raw region's blob is its array's own memory, joined
+    once into the shard: the host holds the regions and one shard, not a
+    payload copy besides."""
+    parts = []
+    offset = 0
     table = []
     for r in regions:
         if r.patch is not None:
@@ -129,9 +134,10 @@ def serialize_shard(regions: list[Region], meta: dict, *, encoding: str = "raw",
             entry = table[-1]
             if checksums:
                 entry["digest"] = kops.digest(blob)
-            entry["offset"] = payload.tell()
+            entry["offset"] = offset
             entry["nbytes"] = len(blob)
-            payload.write(blob)
+            offset += len(blob)
+            parts.append(blob)
             continue
         # guard: a device-delta region that bypassed the delta module (e.g.
         # module toggled off) still serializes correctly
@@ -159,20 +165,17 @@ def serialize_shard(regions: list[Region], meta: dict, *, encoding: str = "raw",
             blob = zlib.compress(arr.tobytes(), level=1)
         else:
             entry["encoding"] = "raw"
-            blob = arr.tobytes()
+            blob = arr.reshape(-1).view(np.uint8)  # no copy
         if checksums:
             entry["digest"] = kops.digest(blob)
-        entry["offset"] = payload.tell()
+        entry["offset"] = offset
         entry["nbytes"] = len(blob)
-        payload.write(blob)
+        offset += len(blob)
+        parts.append(blob)
         table.append(entry)
     header = json.dumps({"regions": table, "meta": meta}).encode()
-    out = io.BytesIO()
-    out.write(MAGIC)
-    out.write(np.uint64(len(header)).tobytes())
-    out.write(header)
-    out.write(payload.getbuffer())
-    return out.getvalue()
+    return b"".join([MAGIC, np.uint64(len(header)).tobytes(), header]
+                    + parts)
 
 
 class ShardReader:

@@ -260,8 +260,10 @@ class SerializeModule(Module):
     def process(self, ctx):
         if callable(ctx.regions):
             # async mode: D2H deferred into the backend — the app was only
-            # blocked for the on-device snapshot.
+            # blocked for the on-device snapshot, which is released here,
+            # with the closure that held it.
             ctx.regions = ctx.regions()
+            ctx.results["d2h_done_at"] = time.monotonic()
         ctx.shard = fmt.serialize_shard(ctx.regions, ctx.meta,
                                         encoding=self.encoding,
                                         checksums=self.checksums)

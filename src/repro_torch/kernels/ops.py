@@ -164,27 +164,66 @@ def xor_pair(a, b):
 # ---------------------------------------------------------------------------
 
 
-def fletcher_chunks(words, chunk: int = _ck.CHUNK_WORDS) -> np.ndarray:
-    """words: (n,) uint32 (host array or tensor) -> (n_chunks, 2) uint32
-    per-chunk checksums, on the host."""
-    src = _words_tensor(words).reshape(-1)
-    n = src.shape[0]
-    if n == 0:
+#: Words a checksum copies to the device at a time: 32,768 rows of
+#: ``CHUNK_WORDS`` (256 MiB).  A shard of any size (22 GB for xlstm-1.3b's
+#: train state) streams through one buffer of this size.
+DIGEST_PIECE_WORDS = 32768 * _ck.CHUNK_WORDS
+
+
+def _byte_view(buf) -> torch.Tensor:
+    """The bytes of ``buf`` (bytes, a numpy array or a tensor) as a 1-D
+    uint8 tensor sharing its memory."""
+    if isinstance(buf, torch.Tensor):
+        return buf.reshape(-1).view(torch.uint8)
+    if isinstance(buf, (bytes, bytearray, memoryview)):
+        a = np.frombuffer(buf, dtype=np.uint8)
+    else:
+        a = np.ascontiguousarray(buf).reshape(-1).view(np.uint8)
+    return torch.from_numpy(a)
+
+
+def fletcher_chunks(words, chunk: int = _ck.CHUNK_WORDS,
+                    piece_words: int = DIGEST_PIECE_WORDS) -> np.ndarray:
+    """words: uint32 words or raw bytes (host array, bytes or tensor) ->
+    (n_chunks, 2) uint32 per-chunk checksums, on the host; a last partial
+    word or row reads as zeros.
+
+    A tensor already on the package's device in whole, aligned rows is
+    read in place.  Anything else is copied to the device in pieces of
+    ``piece_words`` words (a whole number of rows) through one buffer of
+    at most that size, and the pieces' tables are concatenated: the table
+    is the one-shot table, whatever the input's length."""
+    if piece_words <= 0 or piece_words % chunk:
+        raise ValueError(f"piece of {piece_words} words is not a whole "
+                         f"number of {chunk}-word rows")
+    src = _byte_view(words)
+    nbytes = src.shape[0]
+    row_bytes = 4 * chunk
+    rows = -(-nbytes // row_bytes)
+    if rows == 0:
         return np.zeros((0, 2), np.uint32)
     _check_device()
-    KERNEL_DISPATCHES["checksum"] += 1
-    rows = -(-n // chunk)
-    total = rows * chunk
-    if _on_device(src) and total == n and (
-            _device.type == "cpu" or src.data_ptr() % 16 == 0):
-        dev = src
-    else:
-        # one copy to the device; only the last partial row is zero-padded
-        dev = torch.empty((total,), dtype=torch.int32, device=_device)
-        dev[n:].zero_()
-        dev[:n].copy_(src)
-    table = _ck.checksum(dev.view(rows, chunk))
-    return table.cpu().numpy().view(np.uint32)
+    if isinstance(words, torch.Tensor) and _on_device(src) and \
+            nbytes == rows * row_bytes and (
+                _device.type == "cpu" or src.data_ptr() % 16 == 0):
+        KERNEL_DISPATCHES["checksum"] += 1
+        table = _ck.checksum(src.view(torch.int32).view(rows, chunk))
+        return table.cpu().numpy().view(np.uint32)
+    out = np.empty((rows, 2), np.uint32)
+    piece_bytes = 4 * piece_words
+    buf = torch.empty((min(piece_words, rows * chunk),), dtype=torch.int32,
+                      device=_device)
+    for start in range(0, nbytes, piece_bytes):
+        m = min(piece_bytes, nbytes - start)
+        prows = -(-m // row_bytes)
+        dev = buf[:prows * chunk]
+        dev.view(torch.uint8)[m:].zero_()  # only the last piece is short
+        dev.view(torch.uint8)[:m].copy_(src[start:start + m])
+        KERNEL_DISPATCHES["checksum"] += 1
+        r0 = start // row_bytes
+        out[r0:r0 + prows] = _ck.checksum(dev.view(prows, chunk)) \
+            .cpu().numpy().view(np.uint32)
+    return out
 
 
 def fold_digest(chunks: np.ndarray, n_words: int) -> str:
@@ -201,9 +240,10 @@ def fold_digest(chunks: np.ndarray, n_words: int) -> str:
 
 
 def digest(buf: bytes | np.ndarray) -> str:
-    """Hex digest of a byte buffer (chunk checksums folded host-side)."""
-    words = bytes_to_u32(buf)
-    return fold_digest(fletcher_chunks(words), len(words))
+    """Hex digest of a byte buffer (chunk checksums folded host-side).  The
+    bytes stream to the device in pieces: no copy of the whole buffer is
+    made, on the host or on the device."""
+    return fold_digest(fletcher_chunks(buf), -(-_byte_view(buf).shape[0] // 4))
 
 
 def chunk_digests(blobs) -> list[str]:

@@ -50,6 +50,9 @@ class TrainRun:
     tick_s: list = field(default_factory=list)
     #: per checkpoint call, ``results["app_blocking_s"]``
     app_blocking_s: list = field(default_factory=list)
+    #: per checkpoint call, its future's ``results`` (the backend fills in
+    #: each stage's status and ``<stage>.done_at`` time as it runs)
+    ckpt_results: list = field(default_factory=list)
     #: from the end of the loop until the backend has drained
     drain_s: Optional[float] = None
     #: per ``restart_latest`` call (``--resume``, ``--fail-at``)
@@ -222,6 +225,7 @@ def main(argv=None) -> TrainRun:
                                     meta={"step": step + 1, "loss": loss})
             blocking = fut.results.get("app_blocking_s", 0)
             run.app_blocking_s.append(blocking)
+            run.ckpt_results.append(fut.results)
             if ds and not fut.skipped:
                 ds.record(step + 1, metrics={"loss": loss})
             print(f"step {step+1}: loss={loss:.4f} "

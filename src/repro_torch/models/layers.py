@@ -1,9 +1,11 @@
 """Dense transformer layers: RMSNorm, RoPE, the MLP variants and full, GQA
-and local (windowed) self-attention.
+and local (windowed) self-attention, with its one-token decode against a
+cache.
 
 Parameters are plain nested dicts of tensors with the JAX package's names,
 shapes and dtypes (``repro.models.layers``).  Every matmul input is cast to
-``cfg.compute_dtype``; norms and the softmax run in float32.  Attention is
+``cfg.compute_dtype``; norms and the softmax run in float32 (``wide``:
+float64 when the compute dtype is, for a reference run).  Attention is
 computed with torch ops (einsum, the same ``-1e30`` mask, softmax in f32):
 the JAX package computes it with ``jnp.einsum`` outside any Pallas kernel.
 
@@ -28,6 +30,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own dtype when that is wider: where the
+    JAX package computes in float32, a float64 reference run stays
+    float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def cdt(cfg) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
 
@@ -46,17 +55,18 @@ def he(gen, shape, dtype, device, fan_in=None):
 
 def rms_norm(x, scale, eps=1e-6):
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * scale.float()).to(dt)
+    return (x * scale.to(x.dtype)).to(dt)
 
 
 def rope(x, positions, theta=10_000.0):
     """Rotary embedding.  x: (..., T, H, hd); positions: (..., T)."""
     half = x.shape[-1] // 2
-    freq = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    wd = torch.promote_types(x.dtype, torch.float32)
+    freq = torch.arange(half, dtype=wd, device=x.device) / half
     inv = theta ** (-freq)
-    ang = positions[..., None].float() * inv  # (..., T, half)
+    ang = positions[..., None].to(wd) * inv  # (..., T, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -109,7 +119,7 @@ def _attn_block(q, k, v, *, causal, window, q_start):
     0..Tk-1."""
     Tq, hd, Tk = q.shape[1], q.shape[3], k.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-    scores = scores.float()
+    scores = wide(scores)
     qpos = q_start + torch.arange(Tq, device=q.device)[:, None]
     kpos = torch.arange(Tk, device=q.device)[None, :]
     mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
@@ -175,3 +185,44 @@ def apply_attn(p, cfg, x, positions, *, window=0):
     k, v = repeat_kv(k, H // K), repeat_kv(v, H // K)
     o = sdpa(q, k, v, causal=cfg.causal, window=window)
     return torch.einsum("bthk,hkd->btd", o, p["wo"].to(ct))
+
+
+def attn_decode(p, cfg, x, cache_k, cache_v, pos, *, window=0):
+    """One-token decode.  x: (B,1,d); cache_(k|v): (B,S,K,hd); pos: the
+    position of the token, the same for every batch row (an int or a 0-d
+    integer tensor).  A local-attention cache is a ring of S slots (S =
+    min(window, context)), position p in slot p % window.
+
+    Returns (out, new_k, new_v); the caches are new tensors."""
+    ct = cdt(cfg)
+    x = x.to(ct)
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(ct))
+    k = torch.einsum("btd,dgk->btgk", x, p["wk"].to(ct))
+    v = torch.einsum("btd,dgk->btgk", x, p["wv"].to(ct))
+    S = cache_k.shape[1]
+    pos = torch.as_tensor(pos, device=x.device)
+    slot = pos % window if window else pos
+    ppos = pos.reshape(1, 1).expand(B, 1)
+    q = rope(q, ppos, cfg.rope_theta)
+    k = rope(k, ppos, cfg.rope_theta)
+    spos = torch.arange(S, device=x.device)
+    smask = (spos == slot)[None, :, None, None]
+    cache_k = torch.where(smask, k.to(cache_k.dtype), cache_k)
+    cache_v = torch.where(smask, v.to(cache_v.dtype), cache_v)
+    # grouped-GQA attention against the cache, keeping the kv-head dim
+    G = H // K
+    qg = q.reshape(B, 1, K, G, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.to(ct)) \
+        / math.sqrt(hd)
+    if window:
+        valid = spos < torch.clamp(pos + 1, max=window)  # ring slots used
+    else:
+        valid = spos <= pos
+    scores = torch.where(valid, wide(scores), -1e30)
+    attn = torch.softmax(scores, dim=-1).to(ct)
+    o = torch.einsum("bkgqs,bskd->bqkgd", attn, cache_v.to(ct))
+    o = o.reshape(B, 1, H, hd)
+    out = torch.einsum("bqhk,hkd->bqd", o, p["wo"].to(ct))
+    return out, cache_k, cache_v

@@ -1,15 +1,18 @@
-"""Model dispatch: one API over the ported architectures (decoder-only,
-dense).
+"""Model dispatch: one API over the ported architectures (decoder-only:
+dense, xLSTM, RG-LRU hybrids).
 
   init_model          params on an explicit device
   make_loss_fn        (params, batch) -> scalar loss
+  make_prefill_fn     (params, batch) -> (last_logits, cache)
+  make_decode_fn      (params, cache, token, pos) -> (logits, cache)
+  cache_init          an empty decode cache
   batch_struct        shapes and dtypes of a training batch
   make_batch          a concrete random batch (smoke tests, demos)
   count_params        exact parameter counts (total / active / expert)
   model_flops         6*N*D for training, 2*N*D otherwise
 
 Encoder-decoder and vision-frontend models are not ported yet (ROADMAP.md
-queue 1, item 9); nor are prefill and decode.
+queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -39,6 +42,27 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator, device):
 def make_loss_fn(cfg: ModelConfig):
     _check_family(cfg)
     return lambda params, batch: TF.lm_loss(params, cfg, batch)
+
+
+def make_prefill_fn(cfg: ModelConfig, cache_len=None):
+    """``prefill(params, batch)`` -> ``(last_logits, cache)``; ``cache_len``
+    sizes the attention caches for decoding past the prompt
+    (``transformer.lm_prefill``)."""
+    _check_family(cfg)
+    return lambda params, batch: TF.lm_prefill(params, cfg, batch["tokens"],
+                                               cache_len)
+
+
+def make_decode_fn(cfg: ModelConfig):
+    """``decode(params, cache, token, pos)`` -> ``(logits, cache)``."""
+    _check_family(cfg)
+    return lambda params, cache, token, pos: TF.lm_decode_step(
+        params, cfg, cache, token, pos)
+
+
+def cache_init(cfg: ModelConfig, B: int, S: int, *, device):
+    _check_family(cfg)
+    return TF.lm_cache_init(cfg, B, S, torch.device(device))
 
 
 @dataclass(frozen=True)

@@ -58,8 +58,9 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_import_walk_covers_the_workload_modules():
-    """The walk above reaches the training workload's modules and the
-    predictors (each subpackage has an ``__init__``)."""
+    """The walk above reaches the training workload's modules, the
+    recurrent blocks and the predictors (each subpackage has an
+    ``__init__``)."""
     import pkgutil
 
     import repro_torch
@@ -67,6 +68,9 @@ def test_import_walk_covers_the_workload_modules():
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")}
     assert {"repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.recurrent",
+            "repro_torch.configs.xlstm_1_3b",
+            "repro_torch.configs.recurrentgemma_2b",
             "repro_torch.models.model", "repro_torch.train.optimizer",
             "repro_torch.train.data", "repro_torch.train.steps",
             "repro_torch.launch.train", "repro_torch.core.phases",

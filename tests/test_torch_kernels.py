@@ -82,6 +82,49 @@ def test_ops_digest_matches_jax(name):
     assert ops.digest(np.frombuffer(buf, np.uint8)) == jops.digest(buf)
 
 
+@pytest.mark.parametrize("nbytes", [0, 3, 4 * 2048 * 3, 4 * 2048 * 3 + 5,
+                                    4 * 2048 * 7 + 8, 4 * 2048 * 9])
+def test_fletcher_chunks_piecewise_equals_one_shot(nbytes):
+    """Streamed through a piece of 3 rows (so ``4 * 2048 * 3`` bytes is
+    exactly one piece, and 9 rows three whole pieces), the table and the
+    digest equal the one-shot ones (a single piece of every row) and the
+    JAX package's, for ragged lengths, empty input and bytes, numpy words
+    and tensors alike."""
+    buf = np.random.default_rng(nbytes).bytes(nbytes)
+    piece = 3 * 2048
+    one_shot = ops.fletcher_chunks(buf, piece_words=1 << 30)
+    want = jops.fletcher_chunks(jops.bytes_to_u32(buf))
+    np.testing.assert_array_equal(one_shot, want)
+    words = ops.bytes_to_u32(buf)
+    for src in (buf, np.frombuffer(buf, np.uint8), words,
+                torch.from_numpy(words.view(np.int32))):
+        np.testing.assert_array_equal(
+            ops.fletcher_chunks(src, piece_words=piece), want)
+    assert ops.fold_digest(ops.fletcher_chunks(buf, piece_words=piece),
+                           len(words)) == jops.digest(buf) == ops.digest(buf)
+
+
+def test_fletcher_chunks_bounds_the_device_buffer(monkeypatch):
+    """The copy to the device goes through one buffer of at most one
+    piece, whatever the input's length; a piece that is not a whole number
+    of rows is refused."""
+    sizes = []
+    real_empty = torch.empty
+
+    def spy(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        sizes.append(t.numel())
+        return t
+
+    monkeypatch.setattr(ops.torch, "empty", spy)
+    buf = np.random.default_rng(0).bytes(4 * 2048 * 10 + 7)
+    ops.fletcher_chunks(buf, piece_words=2 * 2048)
+    monkeypatch.undo()
+    assert sizes == [2 * 2048]
+    with pytest.raises(ValueError, match="whole number"):
+        ops.fletcher_chunks(buf, piece_words=2048 + 4)
+
+
 def test_chunk_digests_mixed_lengths_match_jax():
     rng = np.random.default_rng(7)
     blobs = [b"", b"a", rng.bytes(5), rng.bytes(8192), rng.bytes(8193),

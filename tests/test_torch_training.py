@@ -4,12 +4,24 @@ CPU: the JAX package's ``tests/test_system.py`` with its imports swapped
 productive branching, the low-level API), plus the trainer
 ``repro_torch.launch.train`` through a simulated failure and ``--resume``,
 and the fused capture's snapshot against the next step's in-place update.
+The recurrent family: one xlstm-1.3b smoke train step against a jitted JAX
+step, the trainer with ``--arch xlstm-1.3b`` through a failure and
+``--resume``, and a recurrentgemma-2b train state (bf16 parameters, the
+RG-LRU's f32 ``lam``) checkpointed by either package and restored by the
+other.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.core as jcore
+from repro.configs import smoke_config as jax_smoke_config
+from repro.train import steps as jsteps
+
 from repro_torch.configs.base import ShapeCfg, smoke_config
+import repro_torch.core as sys_core
 from repro_torch.core import DataStates, VelocClient, VelocConfig
 from repro_torch.core import concurrency as tconc
 from repro_torch.core import restart as rst
@@ -18,7 +30,8 @@ from repro_torch.core.capture import (leaves_with_paths, snapshot_device,
 from repro_torch.kernels import ops
 from repro_torch.launch import train as trainer
 from repro_torch.train.data import SyntheticStream
-from repro_torch.train.steps import init_train_state, make_train_step
+from repro_torch.train.steps import (init_train_state, make_train_step,
+                                     state_from_numpy, state_to_numpy)
 
 SHAPE = ShapeCfg("sys", 64, 4, "train")
 
@@ -296,3 +309,126 @@ def test_trainer_gru_phase_predictor_raises(tmp_path, capsys):
     from repro_torch.core.phases import GRUPhasePredictor
     with pytest.raises(RuntimeError, match="no GPU"):
         GRUPhasePredictor(device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the recurrent family
+# ---------------------------------------------------------------------------
+
+
+def test_xlstm_train_step_matches_jax_step():
+    """One port train step from the JAX state equals one jitted JAX step,
+    xlstm-1.3b smoke in f32.  The stacked mLSTM blocks magnify rounding
+    (``test_torch_models``): gradients agree within 1e-3 of a leaf's
+    largest element, so m within that times (1 - b1), v = (1 - b2) g^2
+    within 2 (1 - b2) |g| times that, and the parameters, which Adam's first step moves by lr * g / (|g| +
+    eps) ~ lr * sign(g), within rtol 1e-5 where |g| exceeds 1e-2 of the
+    leaf's largest gradient and within the update's bound (2 * lr)
+    everywhere."""
+    jcfg = jax_smoke_config("xlstm-1.3b").replace(compute_dtype="float32")
+    tcfg = smoke_config("xlstm-1.3b").replace(compute_dtype="float32")
+    jstate = jsteps.init_train_state(jax.random.PRNGKey(0), jcfg)
+    toks = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, (2, 32)).astype(np.int32)
+    jnew, jm = jax.jit(jsteps.make_train_step(jcfg, lr=1e-3))(
+        jstate, {"tokens": jnp.asarray(toks)})
+    tstate = state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
+    tnew, tm = make_train_step(tcfg, lr=1e-3)(
+        tstate, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-4)
+    got = dict(leaves_with_paths(state_to_numpy(tnew)))
+    want = dict(leaves_with_paths(jax.tree.map(np.asarray, jnew)))
+    assert sorted(got) == sorted(want)
+    assert int(got["opt/step"]) == int(want["opt/step"]) == 1
+    for name, w in want.items():
+        if not name.startswith("params/"):
+            continue
+        m = want["opt/m/" + name[len("params/"):]]
+        g = np.abs(m) / 0.1  # the first m is (1 - b1) * g
+        gmax = g.max()
+        np.testing.assert_allclose(got["opt/m/" + name[7:]], m, rtol=1e-3,
+                                   atol=1e-4 * gmax, err_msg=name)
+        np.testing.assert_allclose(got["opt/v/" + name[7:]],
+                                   want["opt/v/" + name[7:]], rtol=2e-3,
+                                   atol=1e-4 * gmax ** 2, err_msg=name)
+        big = g > 1e-2 * gmax
+        np.testing.assert_allclose(got[name][big], w[big], rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=2e-3,
+                                   err_msg=name)
+
+
+def test_xlstm_trainer_recovers_and_resumes(tmp_path, capsys):
+    """``launch.train --arch xlstm-1.3b --smoke --device cpu``: a failure
+    after step 5 recovers v4, equal to v4 as a fresh client reads it, and
+    ``--resume`` picks up v6."""
+    common = ["--arch", "xlstm-1.3b", "--smoke", "--device", "cpu",
+              "--ckpt-every", "2", "--scratch", str(tmp_path),
+              "--seq-len", "16", "--batch", "2"]
+    run = trainer.main(common + ["--steps", "6", "--fail-at", "5"])
+    assert "[failure-sim] recovered at v4" in capsys.readouterr().out
+    assert run.recovered_version == 4 and np.isfinite(run.losses).all()
+    fresh = VelocClient(trainer.make_pipeline(trainer.parse_args(common)),
+                        trainer.Cluster(trainer.TierTopology(
+                            scratch=str(tmp_path))))
+    regs = rst.load_rank_regions(fresh.cluster, fresh.name, 4, 0)
+    _assert_bitwise_equal(run.recovered_state,
+                          tree_from_regions(run.state, regs))
+    v, latest = fresh.restart_latest(run.state)
+    assert v == 6
+    _assert_bitwise_equal(latest, run.state)
+    fresh.shutdown()
+    resumed = trainer.main(common + ["--steps", "7", "--resume"])
+    assert "[veloc] resumed from checkpoint v6" in capsys.readouterr().out
+    assert resumed.resumed_from == 6 and len(resumed.losses) == 1
+    _assert_bitwise_equal(resumed.resumed_state, latest)
+
+
+_CORE = {"jax": jcore, "torch": sys_core}
+
+
+@pytest.mark.parametrize("writer,reader", [("torch", "jax"),
+                                           ("jax", "torch")])
+def test_recurrentgemma_state_crosses_packages(tmp_path, writer, reader):
+    """A recurrentgemma-2b smoke train state with bf16 parameters (the
+    RG-LRU block nested under ``mix``, its ``lam`` f32) checkpointed by one
+    package restores through the other in a fresh cluster, leaf for leaf
+    and bit for bit, and both packages write the same shard bytes."""
+    cfg = jax_smoke_config("recurrentgemma-2b").replace(
+        param_dtype="bfloat16")
+    jstate = jax.tree.map(np.asarray,
+                          jsteps.init_train_state(jax.random.PRNGKey(3), cfg))
+    lam = jstate["params"]["blocks"][0]["mix"]["lam"]
+    assert lam.dtype == np.float32
+    assert str(jstate["params"]["emb"].dtype) == "bfloat16"
+    inputs = {"jax": jstate, "torch": state_from_numpy(jstate, "cpu")}
+    shards = {}
+    for pkg in (writer, reader):
+        core = _CORE[pkg]
+        vc = core.VelocConfig(scratch=str(tmp_path / pkg), mode="sync",
+                              partner=False, xor_group=0)
+        c = core.VelocClient(vc)
+        c.checkpoint(inputs[pkg], version=1)
+        shards[pkg] = c.cluster.fetch_shard(vc.name, 1, 0)
+        c.shutdown()
+    assert shards[writer] is not None and shards[writer] == shards[reader]
+    core = _CORE[reader]
+    vc = core.VelocConfig(scratch=str(tmp_path / writer), mode="sync",
+                          partner=False, xor_group=0)
+    c = core.VelocClient(vc)
+    v, restored = c.restart_latest(inputs[reader])
+    c.shutdown()
+    assert v == 1, c.restart_diagnostics
+    got = state_to_numpy(restored) if reader == "torch" else \
+        jax.tree.map(np.asarray, restored)
+    want = dict(leaves_with_paths(jstate))
+    got = dict(leaves_with_paths(got))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(g.reshape(-1).view(np.uint8),
+                                      w.reshape(-1).view(np.uint8), name)
