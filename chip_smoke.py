@@ -102,10 +102,31 @@ any failure (the script then exits non-zero):
   7e. recurrentgemma-2b cut to its first 3 layers at full width
      (``recurrentgemma_step``): 10 steps and its decode check (a
      ``recurrentgemma step {...}`` line);
+  7f. the whisper train path (``whisper_train_path``): whisper-medium
+     whole (24 + 24 layers, 811,657,216 parameters, a 9.74 GB train
+     state) through the trainer at batch 8, frames (8, 1500, 1024) and
+     tokens (8, 448), bf16 compute, ``--capture fused``, a checkpoint
+     every 2 steps, a failure after step 3 and recovery from v2; a fresh
+     client must restore v4; every version, the recovered and the last
+     state held against a replay without checkpoints by per-leaf tables
+     computed on the card, the losses within ``TRAIN_LOSS_TOL``; a
+     ``whisper train path {...}`` line;
+  7g. ``whisper serve from restore`` (``whisper_serve``): the fresh
+     client's v4 and the live trainer's v4 each prefill frames (2, 1500,
+     1024) and a 4-token prompt (self caches of ``dec_max_len``) and
+     decode 16 greedy steps in bf16; logits and tokens equal bit for bit;
+     then ``whisper decode`` (``decode_check`` on the restored v4: prefill
+     of 400 tokens and 16 decode steps against ``decode_train``, f32 at
+     full depth within ``STUB_F32_TOL``, float64 cut to ``F64_LAYERS``
+     layers a stack within ``F64_TOL``);
+  7h. ``vision serve`` (``vision_serve``): phi-3-vision-4.2b at full width
+     and depth from a seeded initialisation, 4 rows of 576 patches and 240
+     text tokens served in bf16 (prefill, 16 greedy steps), then its
+     decode check as in 7g;
   8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
-     checksum rows, the train path's one-rank shard and the xlstm path's
-     largest region; the XOR group's words in the aligned row layout of
+     checksum rows, the train path's one-rank shard and the xlstm and
+     whisper paths' largest regions; the XOR group's words in the aligned row layout of
      ``ops.xor_reduce``; the largest leaf's and the 0-d ``opt/step`` leaf's
      words in 64 KiB rows for the block hash and its fused diff; the dirty
      rows of a 1% version of the largest leaf for the gather; the largest
@@ -149,6 +170,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 NRANKS = 4
 L2_FLUSH_WORDS = 64 << 20  # 256 MiB of int32, five times the H100's 50 MB L2
 SPIN_CYCLES = 20_000_000  # ~10 ms of device time at the H100's clocks
+PROFILE_TOP = 8  # kernels named in a profiled step, by device time
 
 
 def _card_line() -> str:
@@ -199,12 +221,14 @@ def _max_abs_err(torch, a, b) -> int:
 
 
 def check_kernels(torch, gen, shard_rows: int, xor_words: int,
-                  train_rows: int, xlstm_rows: int) -> dict:
+                  train_rows: int, xlstm_rows: int,
+                  whisper_rows: int) -> dict:
     """Phase 8: every kernel against its plain version, bit-exact, at small
     shapes, at the main path's ``shard_rows`` and ``xor_words``, at the
-    train path's ``train_rows`` (its one-rank shard) and at the xlstm
-    path's largest region, ``xlstm_rows``; the times kept are the main
-    path's, and the xlstm region's beside them."""
+    train path's ``train_rows`` (its one-rank shard) and at the xlstm and
+    whisper paths' largest regions, ``xlstm_rows`` and ``whisper_rows``;
+    the times kept are the main path's, and the two regions' beside
+    them."""
     import numpy as np
 
     from repro_torch.kernels import checksum as ck
@@ -213,7 +237,7 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int,
 
     stats = {}
     errs = []
-    for rows in (1, 65, train_rows, xlstm_rows, shard_rows):
+    for rows in (1, 65, train_rows, xlstm_rows, whisper_rows, shard_rows):
         x = _random_words(torch, gen, (rows, 2048))
         got, want = ck.checksum(x), ref.checksum_ref(x)
         torch.cuda.synchronize()
@@ -231,8 +255,11 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int,
                                  shape=[rows, 2048])
         if rows == xlstm_rows:
             xlstm = dict(stats["checksum"])
+        if rows == whisper_rows:
+            whisper = dict(stats["checksum"])
         del x, got, want
     stats["checksum"]["xlstm"] = xlstm
+    stats["checksum"]["whisper"] = whisper
     stats["checksum"]["max_abs_err"] = max(errs)
 
     errs = []
@@ -1752,10 +1779,16 @@ SCAN_ERR_RATIO = 10.0
 #: the xlstm train path: steps, a checkpoint every XLSTM_EVERY steps, the
 #: simulated failure after step XLSTM_FAIL (recovery from the version before)
 XLSTM_STEPS, XLSTM_EVERY, XLSTM_FAIL = 6, 3, 4
+#: ``--capture standalone --keep-versions 1``: ``xlstm_train_path`` says why
+XLSTM_PATH = {"arch": "xlstm-1.3b", "seq_len": 256, "batch": 8,
+              "steps": XLSTM_STEPS, "every": XLSTM_EVERY, "fail": XLSTM_FAIL,
+              "flags": ["--capture", "standalone", "--keep-versions", "1"]}
 #: the decode checks: prompt tokens, decode steps and rows, and the
 #: tolerance (rtol and atol) of tests/test_recurrent_equiv.py
 DECODE_PROMPT, DECODE_STEPS, DECODE_ROWS = 240, 16, 2
 DECODE_TOL = 3e-2
+#: the float64 decode rows against the float64 forward
+F64_TOL = 1e-6
 #: recurrentgemma-2b cut to one period of its pattern (rglru, rglru,
 #: local_attn) at full width and vocabulary: layers, steps, parameters
 RG_LAYERS, RG_STEPS, RG_PARAMS = 3, 10, 1_567_680_000
@@ -1916,7 +1949,8 @@ def _host_memory() -> dict:
 def _profile_step(torch, fn, trace: Path) -> dict:
     """One call of ``fn`` (a train step ending in a read of its loss) under
     ``torch.profiler`` (device activity only): kernels launched, device
-    busy ms (the union of kernels and copies) and the profiled wall ms."""
+    busy ms (the union of kernels and copies), the profiled wall ms, and
+    the kernels that took the most device time (name, ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1932,33 +1966,43 @@ def _profile_step(torch, fn, trace: Path) -> dict:
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu):
         busy += max(0.0, b - max(a, last))
         last = max(last, b)
+    by_name = {}
+    for e in gpu:
+        t = by_name.setdefault(e["name"][:80], [0.0, 0])
+        t[0] += e["dur"] / 1e3
+        t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
     return {"kernels": sum(1 for e in gpu if e["cat"] == "kernel"),
-            "device_busy_ms": busy / 1e3, "wall_ms_profiled": wall * 1e3}
+            "device_busy_ms": busy / 1e3, "wall_ms_profiled": wall * 1e3,
+            "top": [[name, ms, n] for name, (ms, n) in top]}
 
 
-def xlstm_reference(torch, seed: int, trace: Path) -> dict:
-    """The xlstm train path's run replayed with the trainer's own parts and
-    no checkpoint: steps 1 to ``XLSTM_FAIL``, then from a device copy of
-    the state after step r (the version the failure recovers) the batches
-    of the steps after the failure, as the trainer goes on after its
-    recovery.  Returns the losses in the run's order, the step times (the
-    first holds each operator's first use; the step after the failure is
-    profiled, ``_profile_step``) and, per checkpointed step, the state's
-    per-leaf tables (``state_tables``): what each version must hold."""
+def replay_reference(torch, path: dict, seed: int, trace: Path) -> dict:
+    """A train path's run (``path``: one of ``XLSTM_PATH``,
+    ``WHISPER_PATH``) replayed with the trainer's own parts and no
+    checkpoint: steps 1 to ``fail``, then from a device copy of the state
+    after step r (the version the failure recovers) the batches of the
+    steps after the failure, as the trainer goes on after its recovery.
+    Returns the losses in the run's order, the step times (the first holds
+    each operator's first use; the step after the failure is profiled,
+    ``_profile_step``) and, per checkpointed step, the state's per-leaf
+    tables (``state_tables``): what each version must hold."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.core.capture import snapshot_device
     from repro_torch.train.data import SyntheticStream
     from repro_torch.train.steps import init_train_state, make_train_step
 
-    cfg = get_config("xlstm-1.3b")
+    cfg = get_config(path["arch"])
+    steps, every, fail = path["steps"], path["every"], path["fail"]
     state = init_train_state(
         cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
         device="cuda")
-    stream = SyntheticStream(cfg, ShapeCfg("cli", 256, 8, "train"),
-                             seed=1234, device="cuda")
+    stream = SyntheticStream(
+        cfg, ShapeCfg("cli", path["seq_len"], path["batch"], "train"),
+        seed=1234, device="cuda")
     step = make_train_step(cfg, lr=3e-4)
-    r = XLSTM_FAIL - XLSTM_FAIL % XLSTM_EVERY
+    r = fail - fail % every
     out = {"losses": [], "step_s": [], "tables": {}}
     kept = None
 
@@ -1969,52 +2013,50 @@ def xlstm_reference(torch, seed: int, trace: Path) -> dict:
         out["step_s"].append(time.perf_counter() - t0)
         return state
 
-    for i in range(XLSTM_FAIL):
-        if i == XLSTM_FAIL - 1:  # the step the failure throws away
+    for i in range(fail):
+        if i == fail - 1:  # the step the failure throws away
             out["profile"] = _profile_step(
                 torch, lambda: one(state, i), trace)
             out["step_s"].pop()
         else:
             state = one(state, i)
-        if (i + 1) % XLSTM_EVERY == 0:
+        if (i + 1) % every == 0:
             out["tables"][i + 1] = state_tables(torch, state)
         if i + 1 == r:
             kept = snapshot_device(state).tree
     state = kept
     del kept
-    for i in range(XLSTM_FAIL, XLSTM_STEPS):
+    for i in range(fail, steps):
         state = one(state, i)
-        if (i + 1) % XLSTM_EVERY == 0:
+        if (i + 1) % every == 0:
             out["tables"][i + 1] = state_tables(torch, state)
     out["recovered"] = r
     return out
 
 
-def xlstm_run(torch, scratch: Path, seed: int) -> dict:
-    """The trainer ``repro_torch.launch.train --arch xlstm-1.3b`` at full
-    width and depth (48 layers, 1,847,216,464 parameters; f32 with AdamW
-    moments, 22.17 GB), batch 8 x 256, bf16 compute, a checkpoint every
-    ``XLSTM_EVERY`` steps through the one-rank async pipeline, the
-    simulated failure after ``XLSTM_FAIL`` and recovery, ``--capture
-    standalone`` (``xlstm_train_path`` says why) and ``--keep-versions 1``;
-    the device memory sampled throughout."""
+def trainer_run(torch, path: dict, scratch: Path, seed: int) -> dict:
+    """The trainer ``repro_torch.launch.train`` on a train path's arch at
+    full width and depth, its batch, a checkpoint every ``every`` steps
+    through the one-rank async pipeline, the simulated failure after
+    ``fail`` and recovery, with the path's capture flags; the device
+    memory sampled throughout."""
     from repro_torch.launch import train as trainer
 
-    common = ["--arch", "xlstm-1.3b", "--seq-len", "256", "--batch", "8",
-              "--ckpt-every", str(XLSTM_EVERY), "--seed", str(seed),
-              "--scratch", str(scratch), "--capture", "standalone",
-              "--keep-versions", "1"]
+    common = ["--arch", path["arch"], "--seq-len", str(path["seq_len"]),
+              "--batch", str(path["batch"]),
+              "--ckpt-every", str(path["every"]), "--seed", str(seed),
+              "--scratch", str(scratch)] + path["flags"]
     torch.cuda.reset_peak_memory_stats()
     with MemorySampler(torch) as mem:
         run = trainer.main(common + ["--mode", "async", "--steps",
-                                     str(XLSTM_STEPS), "--fail-at",
-                                     str(XLSTM_FAIL)])
+                                     str(path["steps"]), "--fail-at",
+                                     str(path["fail"])])
     return {"run": run, "args": common, "samples": mem.samples,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "host": _host_memory()}
 
 
-def xlstm_restart(torch, scratch: Path, args: list, template) -> tuple:
+def fresh_restart(torch, scratch: Path, args: list, template) -> tuple:
     """A fresh client over the same scratch directory (only the persistent
     tiers survive): ``restart_latest`` onto the card."""
     from repro_torch.launch import train as trainer
@@ -2031,119 +2073,179 @@ def xlstm_restart(torch, scratch: Path, args: list, template) -> tuple:
         fresh.shutdown()
 
 
-def _prefill_decode(torch, cfg, params, tokens) -> tuple:
-    """The prefill's last logits and each decoded token's, (B, 1 +
-    ``DECODE_STEPS``, V), and the host ms of the prefill and of each decode
-    step."""
+def _prefill_decode(torch, cfg, params, tokens, prompt: int,
+                    extra: dict) -> tuple:
+    """The prefill's last logits and each decoded token's, (B, 1 + steps,
+    V), and the host ms of the prefill and of each decode step.  The
+    prefill takes ``prompt`` tokens and ``extra`` (the stub frontends'
+    frames or patches); its self-attention caches are sized for the whole
+    context (the encoder-decoder's for ``dec_max_len``), and decode
+    positions count the patches first."""
     from repro_torch.models.model import make_decode_fn, make_prefill_fn
 
+    P = extra["patches"].shape[1] if "patches" in extra else 0
     S = tokens.shape[1]
+    cache_len = cfg.dec_max_len if cfg.is_encoder_decoder else P + S
     decode = make_decode_fn(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, cache = make_prefill_fn(cfg, cache_len=S)(
-        params, {"tokens": tokens[:, :DECODE_PROMPT]})
+    last, cache = make_prefill_fn(cfg, cache_len=cache_len)(
+        params, {"tokens": tokens[:, :prompt], **extra})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     rows, step_ms = [last], []
-    for pos in range(DECODE_PROMPT, S):
+    for pos in range(prompt, S):
         t0 = time.perf_counter()
-        lg, cache = decode(params, cache, tokens[:, pos:pos + 1], pos)
+        lg, cache = decode(params, cache, tokens[:, pos:pos + 1], P + pos)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         rows.append(lg)
     return torch.stack(rows, dim=1), prefill_ms, step_ms
 
 
-def decode_check(torch, cfg, params, seed: int) -> dict:
-    """``lm_prefill`` of ``DECODE_PROMPT`` tokens into caches sized for
-    the whole context, then ``DECODE_STEPS`` ``lm_decode_step``s: each row
-    (the prefill's last logits, then each decoded token's) against
-    ``lm_forward``'s logits at that position, within ``DECODE_TOL`` (the
-    JAX test's rtol and atol).  Run in f32 compute, and in float64 (the
-    same code on the parameters cast to float64).  The float64 rows are
-    held; the f32 rows are held too where the f32 forward itself lies
-    within ``DECODE_TOL`` of the float64 forward.  Past that, rounding
-    amplified through a deep stack, not prefill or decode, decides the f32
-    gap (PERF.md §6), and it is reported only.  ``params`` lie on the
-    card."""
-    from repro_torch.core.capture import map_tree
+def _forward_rows(cfg, params, tokens, prompt: int, extra: dict):
+    """The forward pass's logits at the text positions from ``prompt - 1``
+    on: ``lm_forward`` (after the patches), or the encoder-decoder's
+    teacher-forced ``decode_train`` on the encoded frames."""
+    from repro_torch.models.encdec import decode_train, encode
     from repro_torch.models.transformer import lm_forward
 
-    S = DECODE_PROMPT + DECODE_STEPS
+    if cfg.is_encoder_decoder:
+        full = decode_train(params, cfg, tokens,
+                            encode(params, cfg, extra["frames"]))
+    else:
+        full = lm_forward(params, cfg, tokens,
+                          extra_embeds=extra.get("patches"))
+        full = full[:, full.shape[1] - tokens.shape[1]:]
+    return full[:, prompt - 1:]
+
+
+def cut_depth(cfg, params, n: int) -> tuple:
+    """``cfg`` and ``params`` cut to the first ``n`` layers of each stack
+    (the encoder-decoder's two, or a one-kind decoder's), at full width."""
+    from repro_torch.core.capture import map_tree
+
+    def first(tree):
+        return map_tree(lambda _, t: t[:n], tree)
+
+    if cfg.is_encoder_decoder:
+        return cfg.replace(num_layers=n, enc_layers=n), dict(
+            params, enc_blocks=first(params["enc_blocks"]),
+            dec_blocks=first(params["dec_blocks"]))
+    if len(cfg.block_pattern) != 1:
+        raise ValueError(f"cannot cut the pattern {cfg.block_pattern}")
+    return cfg.replace(num_layers=n), dict(
+        params, blocks=first(params["blocks"]), rem=())
+
+
+def decode_check(torch, cfg, params, seed: int, *, prompt=DECODE_PROMPT,
+                 f64_layers: int | None = None,
+                 f32_tol: float | None = None) -> dict:
+    """Prefill of ``prompt`` tokens (with the stub frontends' frames or
+    patches, drawn on the card) into caches sized for the whole context,
+    then ``DECODE_STEPS`` decode steps: each row (the prefill's last
+    logits, then each decoded token's) against the forward pass's logits
+    at that position (``_forward_rows``).  Run in f32 compute, and in
+    float64 (the same code on the parameters cast to float64), cut to
+    ``f64_layers`` layers a stack when given.  The float64 rows are held
+    within ``F64_TOL``.  The f32 rows are held within ``f32_tol`` when
+    given; else within ``DECODE_TOL`` (the JAX test's rtol and atol) where
+    the f32 forward itself lies within ``DECODE_TOL`` of the float64
+    forward of the same depth.  Past that, rounding amplified through a
+    deep stack, not prefill or decode, decides the f32 gap (PERF.md §6),
+    and it is reported only.  ``params`` lie on the card."""
+    from repro_torch.core.capture import map_tree
+    from repro_torch.models.layers import torch_dtype
+
+    S = prompt + DECODE_STEPS
     gen = torch.Generator(device="cuda").manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (DECODE_ROWS, S),
                            generator=gen, device="cuda", dtype=torch.int32)
+    extra32 = {}
+    if cfg.is_encoder_decoder:
+        extra32["frames"] = torch.randn(
+            (DECODE_ROWS, WHISPER_FRAMES, cfg.d_model), generator=gen,
+            device="cuda") * 0.02
+    elif cfg.frontend == "vision":
+        extra32["patches"] = torch.randn(
+            (DECODE_ROWS, cfg.num_patches, cfg.d_model), generator=gen,
+            device="cuda") * 0.02
     V = cfg.vocab_size  # the padded vocab's columns are masked to -1e30
-    out = {"prompt": DECODE_PROMPT, "steps": DECODE_STEPS,
-           "rows": DECODE_ROWS}
+    out = {"prompt": prompt, "steps": DECODE_STEPS, "rows": DECODE_ROWS,
+           "extra": {k: list(v.shape) for k, v in extra32.items()},
+           "f64_layers": f64_layers or cfg.num_layers,
+           "f32_tol": f32_tol, "f64_tol": F64_TOL}
     fwd = {}
     with torch.no_grad():
         for name, dt in (("f32", "float32"), ("f64", "float64")):
-            c = cfg.replace(compute_dtype=dt)
-            p = params if dt == "float32" else map_tree(
-                lambda _, t: t.double(), params)
-            full = lm_forward(p, c, tokens)[:, DECODE_PROMPT - 1:, :V]
-            rows, prefill_ms, step_ms = _prefill_decode(torch, c, p, tokens)
+            c, p = cfg.replace(compute_dtype=dt), params
+            if dt == "float64":
+                if f64_layers:
+                    c, p = cut_depth(c, p, f64_layers)
+                p = map_tree(lambda _, t: t.double(), p)
+            extra = {k: v.to(torch_dtype(dt)) for k, v in extra32.items()}
+            full = _forward_rows(c, p, tokens, prompt, extra)[..., :V]
+            rows, prefill_ms, step_ms = _prefill_decode(torch, c, p, tokens,
+                                                        prompt, extra)
             rows = rows[..., :V]
             del p
             fwd[name] = full
+            tol = F64_TOL if dt == "float64" else (f32_tol or DECODE_TOL)
             out[name] = {
                 "finite": bool(torch.isfinite(rows).all()),
                 "gap": float((rows - full).abs().max()),
                 "gap_per_row": (rows - full).abs().amax(dim=(0, 2)).tolist(),
-                "within_tol": bool(torch.allclose(
-                    rows, full, rtol=DECODE_TOL, atol=DECODE_TOL)),
+                "within_tol": bool(torch.allclose(rows, full, rtol=tol,
+                                                  atol=tol)),
                 "prefill_ms": prefill_ms,
                 "decode_ms_per_step": _stats(step_ms)}
-    out["forward_f32_vs_f64"] = float(
-        (fwd["f32"].double() - fwd["f64"]).abs().max())
-    out["logit_absmax"] = float(fwd["f64"].abs().max())
-    out["f32_held"] = out["forward_f32_vs_f64"] <= DECODE_TOL
+    out["logit_absmax"] = float(fwd["f32"].abs().max())
+    if f32_tol is None:
+        out["forward_f32_vs_f64"] = float(
+            (fwd["f32"].double() - fwd["f64"]).abs().max())
+        out["f32_held"] = out["forward_f32_vs_f64"] <= DECODE_TOL
+    else:
+        out["f32_held"] = True
     out["ok"] = out["f32"]["finite"] and out["f64"]["finite"] and \
         out["f64"]["within_tol"] and (out["f32"]["within_tol"]
                                       or not out["f32_held"])
     return out
 
 
-def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> dict:
-    """The xlstm-1.3b train path at full width and depth, then its decode:
+def checked_train_path(torch, path: dict, scratch: Path, seed: int,
+                       run_path, name: str, *, want_version=None,
+                       keep_live=False) -> tuple:
+    """A train path (``path``: ``XLSTM_PATH`` or ``WHISPER_PATH``) at full
+    width and depth, checked against its replay:
 
-      ref. ``xlstm_reference``: the run replayed without checkpoints, per
-        checkpointed step the state's per-leaf tables (22 GB states cannot
-        be kept as device copies), its step times (the baseline rate) and
-        a profiled step;
-      a. ``xlstm_run``, the trainer with checkpoints, failure and recovery;
+      ref. ``replay_reference``: the run replayed without checkpoints, per
+        checkpointed step the state's per-leaf tables (a state of many GB
+        cannot be kept as device copies), its step times (the baseline
+        rate) and a profiled step;
+      a. ``trainer_run``: the trainer with checkpoints, the failure and
+        recovery;
       restart. a fresh client's ``restart_latest`` from the persistent
-        tiers, and the first version read back by it.
+        tiers (``want_version`` when given, else the newest version the
+        flush completed), and every other version read back by it.
 
     Deterministic algorithms are on for the replay and the run, so every
     checked state equals the replay's byte for byte: each version read back
     by the fresh client, the state recovered at the failure and the last
     state, held by tables computed on the card (``state_tables``), and the
-    losses.  ``--capture standalone``: the fused capture clones the whole
-    state in every step and keeps the previous step's clone alive through
-    the next, so with a version still in its device-to-host copy the card
-    would hold 4 x 22.17 GB + 7.39 GB of gradients, more than its 80 GB;
-    the standalone capture clones only at a checkpoint.  The backend must
-    drop that clone when its copy to the host ends (``snapshot_release``).
-    Then ``decode_check`` from the restored parameters.  ``run_path``
-    counts the kernels of the run and of the fresh restart."""
+    losses within ``TRAIN_LOSS_TOL``.  ``run_path`` counts the kernels of
+    the run and of the fresh restart.  Returns the path's line (every key
+    but ``config``), the run (its state dropped unless ``keep_live``), the
+    fresh client's state and the device memory samples."""
     import gc
     import math
     import warnings
 
-    from repro_torch.configs import get_config
     from repro_torch.core import restart as rst
     from repro_torch.core.capture import leaves_with_paths
     from repro_torch.launch import train as trainer
 
+    steps = path["steps"]
     scratch.mkdir(parents=True, exist_ok=True)
-    disk = subprocess.run(["df", "-h", str(scratch)], capture_output=True,
-                          text=True, timeout=60).stdout
-    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
-                          timeout=60).stdout
-    print(f"xlstm path scratch:\n{disk}{free}", end="")
     fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.utils.deterministic.fill_uninitialized_memory = False
@@ -2151,13 +2253,14 @@ def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> dict:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            ref = xlstm_reference(torch, seed, scratch / "trace.json.gz")
+            ref = replay_reference(torch, path, seed,
+                                   scratch / "trace.json.gz")
             marks.append(("replay", time.perf_counter()))
             gc.collect()
             torch.cuda.empty_cache()
             a, launches_run = run_path(
-                "xlstm train path", ("checksum",),
-                lambda: xlstm_run(torch, scratch, seed))
+                f"{name} train path", ("checksum",),
+                lambda: trainer_run(torch, path, scratch, seed))
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = fill
@@ -2168,32 +2271,30 @@ def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> dict:
     if run.recovered_version != r:
         raise AssertionError(f"recovered v{run.recovered_version}, want v{r}")
     gap = max(abs(x - y) for x, y in zip(run.losses, ref["losses"]))
-    if len(run.losses) != XLSTM_STEPS or \
+    if len(run.losses) != steps or \
             not all(math.isfinite(x) for x in run.losses) or \
             gap > TRAIN_LOSS_TOL:
-        raise AssertionError(f"xlstm losses {run.losses} against the "
+        raise AssertionError(f"{name} losses {run.losses} against the "
                              f"replay's {ref['losses']}")
     _assert_tables_equal(state_tables(torch, run.recovered_state),
                          ref["tables"][r], f"state recovered at v{r}")
     run.recovered_state = None
     _assert_tables_equal(state_tables(torch, run.state),
-                         ref["tables"][XLSTM_STEPS], "last state")
+                         ref["tables"][steps], "last state")
     sizes = [t.numel() * t.element_size()
              for _, t in leaves_with_paths(run.state)]
-    state_bytes = sum(sizes)
-    release = snapshot_release(a["samples"], run.ckpt_results[0],
-                               state_bytes)
     marks.append(("state checks", time.perf_counter()))
     gc.collect()
     torch.cuda.empty_cache()
     (version, latest, restart_s), launches_restart = run_path(
-        "xlstm fresh restart", ("checksum",),
-        lambda: xlstm_restart(torch, scratch, a["args"], run.state))
-    run.state = None
+        f"{name} fresh restart", ("checksum",),
+        lambda: fresh_restart(torch, scratch, a["args"], run.state))
+    if not keep_live:
+        run.state = None
     marks.append(("fresh restart", time.perf_counter()))
-    # the newest version the flush completed; v{r} when the last one's
-    # flush outlasted the trainer's final wait
-    if version not in ref["tables"]:
+    # without want_version: the newest version the flush completed, the
+    # one before when the last one's flush outlasted the trainer's wait
+    if version not in ref["tables"] or version != (want_version or version):
         raise AssertionError(f"fresh client restored v{version}")
     _assert_tables_equal(state_tables(torch, latest), ref["tables"][version],
                          f"v{version} restored by a fresh client")
@@ -2214,27 +2315,13 @@ def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> dict:
     finally:
         fresh.shutdown()
     marks.append(("read back", time.perf_counter()))
-    params = latest["params"]
-    del latest
-    gc.collect()
-    torch.cuda.empty_cache()
-    decode = decode_check(torch, get_config("xlstm-1.3b"), params, seed + 5)
-    del params
-    marks.append(("decode", time.perf_counter()))
 
     def rate(xs):
         return len(xs) / sum(xs)
 
-    warn = sorted({f"{w.category.__name__}: {str(w.message)[:200]}"
-                   for w in caught})
     out = {
-        "config": {"arch": "xlstm-1.3b", "layers": 48, "batch": [8, 256],
-                   "state_bytes": state_bytes, "leaves": len(sizes),
-                   "steps": XLSTM_STEPS, "ckpt_every": XLSTM_EVERY,
-                   "fail_at": XLSTM_FAIL},
         "largest_region_rows": -(-max(sizes) // 8192),
-        "capture": "standalone (fused: 4 x 22.17 GB of state and snapshots "
-                   "+ 7.39 GB of gradients exceed the card's 80 GB)",
+        "state_bytes": sum(sizes), "leaves": len(sizes),
         "step_ms_ckpt": {k: v * 1e3 for k, v in
                          _stats(run.step_s[1:]).items()},
         "step_ms_no_ckpt": {k: v * 1e3 for k, v in
@@ -2249,9 +2336,9 @@ def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> dict:
         "versions": {str(i): {k: v for k, v in res.items()
                               if k.endswith(".status") or k in
                               ("shard_bytes", "app_blocking_s", "errors")}
-                     for i, res in zip(range(XLSTM_EVERY, XLSTM_STEPS + 1,
-                                             XLSTM_EVERY), run.ckpt_results)},
-        "snapshot_release": release,
+                     for i, res in zip(range(path["every"], steps + 1,
+                                             path["every"]),
+                                       run.ckpt_results)},
         "peak_device_gb": a["peak_bytes"] / 1e9,
         "host": a["host"],
         "loss": {"first": run.losses[0], "last": run.losses[-1],
@@ -2259,11 +2346,58 @@ def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> dict:
         "profile_step": ref["profile"],
         "idle_share_no_ckpt": 1 - ref["profile"]["device_busy_ms"] / (
             statistics.median(ref["step_s"][1:]) * 1e3),
-        "warnings": warn,
+        "warnings": sorted({f"{w.category.__name__}: {str(w.message)[:200]}"
+                            for w in caught}),
         "launches": {k: launches_run[k] + launches_restart[k]
                      for k in launches_run},
-        "phase_s": {name: t - prev for (_, prev), (name, t) in
+        "phase_s": {mark: t - prev for (_, prev), (mark, t) in
                     zip(marks, marks[1:])}}
+    return out, run, latest, a["samples"]
+
+
+def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> tuple:
+    """The xlstm-1.3b train path (``checked_train_path``): the trainer at
+    full width and depth (48 layers, 1,847,216,464 parameters; f32 with
+    AdamW moments, 22.17 GB), batch 8 x 256, bf16 compute, a checkpoint
+    every ``XLSTM_EVERY`` steps, the failure after ``XLSTM_FAIL``.
+    ``--capture standalone``: the fused capture clones the whole state in
+    every step and keeps the previous step's clone alive through the next,
+    so with a version still in its device-to-host copy the card would hold
+    4 x 22.17 GB + 7.39 GB of gradients, more than its 80 GB; the
+    standalone capture clones only at a checkpoint.  The backend must drop
+    that clone when its copy to the host ends (``snapshot_release``).  Then
+    ``decode_check`` from the restored parameters.  Returns the ``xlstm
+    train path`` and ``xlstm decode`` lines."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    scratch.mkdir(parents=True, exist_ok=True)
+    disk = subprocess.run(["df", "-h", str(scratch)], capture_output=True,
+                          text=True, timeout=60).stdout
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout
+    print(f"xlstm path scratch:\n{disk}{free}", end="")
+    out, run, latest, samples = checked_train_path(
+        torch, XLSTM_PATH, scratch, seed, run_path, "xlstm")
+    release = snapshot_release(samples, run.ckpt_results[0],
+                               out["state_bytes"])
+    params = latest["params"]
+    del latest, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    decode = decode_check(torch, get_config("xlstm-1.3b"), params, seed + 5)
+    del params
+    out["phase_s"]["decode"] = time.perf_counter() - t0
+    out = {"config": {"arch": "xlstm-1.3b", "layers": 48, "batch": [8, 256],
+                      "state_bytes": out.pop("state_bytes"),
+                      "leaves": out.pop("leaves"), "steps": XLSTM_STEPS,
+                      "ckpt_every": XLSTM_EVERY, "fail_at": XLSTM_FAIL},
+           "capture": "standalone (fused: 4 x 22.17 GB of state and "
+                      "snapshots + 7.39 GB of gradients exceed the card's "
+                      "80 GB)",
+           "snapshot_release": release, **out}
     return out, decode
 
 
@@ -2313,6 +2447,187 @@ def recurrentgemma_step(torch, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["decode"] = decode_check(torch, cfg, params, seed + 6)
+    return out
+
+
+#: the whisper train path: whisper-medium whole, batch 8 x 1500 frames
+#: (448 decoder tokens), a checkpoint every 2 steps, the failure after step
+#: 3 (recovery from v2), the default fused capture, every version kept
+WHISPER_FRAMES = 1500
+WHISPER_PATH = {"arch": "whisper-medium", "seq_len": WHISPER_FRAMES,
+                "batch": 8, "steps": 4, "every": 2, "fail": 3,
+                "flags": ["--capture", "fused"]}
+WHISPER_PARAMS = 811_657_216
+#: serving: rows, prompt tokens and greedy decode steps; the decode checks'
+#: prompts (whisper: 400 + 16 tokens within its 448; vision: 240 text
+#: tokens after the 576 patches) and their float64 depth
+SERVE_ROWS, SERVE_PROMPT, SERVE_STEPS = 2, 4, 16
+WHISPER_DECODE_PROMPT, VISION_DECODE_PROMPT = 400, 240
+F64_LAYERS = 4
+#: f32 decode rows against the f32 forward at full width: float32
+#: roundings (about 6e-8 of logits up to ~6) summed in other orders by the
+#: one-token and the whole-sequence matrix products, through 48 or 32
+#: layers of sums of up to 4096 terms
+STUB_F32_TOL = 1e-3
+VISION_ROWS = 4
+VISION_PARAMS = 3_822_259_200
+
+
+def whisper_train_path(torch, scratch: Path, seed: int, run_path) -> tuple:
+    """The whisper-medium train path (``checked_train_path``), nothing cut
+    (24 + 24 layers, d_model 1024, vocab 51,865; 811,657,216 parameters,
+    with AdamW 9.74 GB): the trainer at batch 8, frames (8, 1500, 1024) and
+    tokens (8, 448), bf16 compute, ``--capture fused`` (4 x 9.74 GB of state
+    and snapshots + 3.25 GB of gradients fit), v2 and v4, a failure after
+    step 3 and recovery from v2; the fresh client must restore v4.
+    Returns the ``whisper train path`` line, and the parameters of v4 as
+    the fresh client restored it and as the live trainer left them."""
+    from repro_torch.core.capture import leaves_with_paths
+
+    path = WHISPER_PATH
+    out, run, latest, _ = checked_train_path(
+        torch, path, scratch, seed, run_path, "whisper",
+        want_version=path["steps"], keep_live=True)
+    n_params = sum(t.numel() for _, t in leaves_with_paths(
+        run.state["params"]))
+    if n_params != WHISPER_PARAMS:
+        raise AssertionError(f"whisper-medium: {n_params} parameters")
+    out = {"config": {"arch": path["arch"], "layers": [24, 24],
+                      "params": n_params,
+                      "frames": [path["batch"], WHISPER_FRAMES, 1024],
+                      "tokens": [path["batch"], 448],
+                      "state_bytes": out.pop("state_bytes"),
+                      "leaves": out.pop("leaves"), "steps": path["steps"],
+                      "ckpt_every": path["every"], "fail_at": path["fail"],
+                      "capture": "fused"}, **out}
+    return out, latest["params"], run.state["params"]
+
+
+def greedy_serve(torch, cfg, params, batch: dict, steps: int) -> dict:
+    """Prefill of ``batch`` into self-attention caches sized for the
+    context (the encoder-decoder's ``dec_max_len``; the vision stub's
+    patches, prompt and ``steps``), then ``steps`` greedy decode steps
+    from its last logits.  Returns every row of logits (B, 1 + steps, V),
+    the tokens chosen and the host ms of the prefill and of each step."""
+    from repro_torch.models.model import make_decode_fn, make_prefill_fn
+
+    T = batch["tokens"].shape[1]
+    P = batch["patches"].shape[1] if "patches" in batch else 0
+    cache_len = cfg.dec_max_len if cfg.is_encoder_decoder else P + T + steps
+    decode = make_decode_fn(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = make_prefill_fn(cfg, cache_len=cache_len)(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        rows, toks, step_ms = [lg], [lg.argmax(-1)], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            lg, cache = decode(params, cache,
+                               toks[-1][:, None].to(torch.int32), P + T + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(lg)
+            toks.append(lg.argmax(-1))
+    return {"logits": torch.stack(rows, dim=1),
+            "tokens": torch.stack(toks, dim=1), "prefill_ms": prefill_ms,
+            "step_ms": step_ms}
+
+
+def whisper_serve(torch, restored, live, seed: int) -> dict:
+    """The fresh client's restored v4 serves: prefill of frames
+    (``SERVE_ROWS``, 1500, 1024) and a prompt of ``SERVE_PROMPT`` tokens
+    in bf16 (the trained compute dtype), the self caches sized for
+    ``dec_max_len``, then ``SERVE_STEPS`` greedy decode steps; the same
+    from the live trainer's v4.  Every logit and every token must be equal
+    bit for bit (deterministic algorithms on): after a failure the
+    restored weights answer as the live ones would."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-medium")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"frames": (torch.randn((SERVE_ROWS, WHISPER_FRAMES,
+                                     cfg.d_model), generator=gen,
+                                    device="cuda") * 0.02).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab_size,
+                                     (SERVE_ROWS, SERVE_PROMPT),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = greedy_serve(torch, cfg, restored, batch, SERVE_STEPS)
+        want = greedy_serve(torch, cfg, live, batch, SERVE_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = torch.equal(got["logits"], want["logits"])
+    same_tokens = torch.equal(got["tokens"], want["tokens"])
+    out = {"rows": SERVE_ROWS, "frames": WHISPER_FRAMES,
+           "prompt": SERVE_PROMPT, "steps": SERVE_STEPS,
+           "cache_len": cfg.dec_max_len, "compute": cfg.compute_dtype,
+           "logits_equal": equal, "tokens_equal": same_tokens,
+           "max_abs_diff": float((got["logits"] - want["logits"]).abs()
+                                 .max()),
+           "tokens": got["tokens"].tolist(),
+           "finite": bool(torch.isfinite(got["logits"]).all()),
+           "prefill_ms": {"restored": got["prefill_ms"],
+                          "live": want["prefill_ms"]},
+           "decode_ms_per_step": {"restored": _stats(got["step_ms"]),
+                                  "live": _stats(want["step_ms"])}}
+    if not (equal and same_tokens and out["finite"]):
+        raise AssertionError(f"the restored v4 serves other logits than the "
+                             f"live v4: {out}")
+    return out
+
+
+def vision_serve(torch, seed: int) -> dict:
+    """phi-3-vision-4.2b at full width and depth (32 layers, d_model 3072,
+    576 patches; 3,822,259,200 parameters, 15.3 GB in f32) from a seeded
+    initialisation on the card: rows of 576 patches and a text prompt
+    served in bf16 (prefill, then ``SERVE_STEPS`` greedy decode steps),
+    then ``decode_check`` (f32 at full depth within ``STUB_F32_TOL``,
+    float64 cut to ``F64_LAYERS`` layers within ``F64_TOL``)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.capture import leaves_with_paths
+    from repro_torch.models.model import init_model
+
+    cfg = get_config("phi-3-vision-4.2b")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_model(cfg, generator=gen, device="cuda")
+    n = sum(t.numel() for _, t in leaves_with_paths(params))
+    if n != VISION_PARAMS:
+        raise AssertionError(f"phi-3-vision-4.2b: {n} parameters")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (VISION_ROWS, VISION_DECODE_PROMPT),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "patches": (torch.randn((VISION_ROWS, cfg.num_patches,
+                                      cfg.d_model), generator=gen,
+                                     device="cuda") * 0.02
+                         ).to(torch.bfloat16)}
+    served = greedy_serve(torch, cfg, params, batch, SERVE_STEPS)
+    if not torch.isfinite(served["logits"]).all() or \
+            int(served["tokens"].max()) >= cfg.vocab_size:
+        raise AssertionError("vision serve: non-finite logits or a padded "
+                             "token")
+    out = {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                      "params": n, "rows": VISION_ROWS,
+                      "patches": cfg.num_patches,
+                      "text": VISION_DECODE_PROMPT, "steps": SERVE_STEPS,
+                      "compute": cfg.compute_dtype},
+           "prefill_ms": served["prefill_ms"],
+           "decode_ms_per_step": _stats(served["step_ms"]),
+           "peak_device_gb_serve": torch.cuda.max_memory_allocated() / 1e9}
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode"] = decode_check(torch, cfg, params, seed + 1,
+                                 prompt=VISION_DECODE_PROMPT,
+                                 f64_layers=F64_LAYERS, f32_tol=STUB_F32_TOL)
+    out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
@@ -2539,16 +2854,36 @@ def main(argv=None) -> int:
     print(f"xlstm decode {json.dumps(xdecode)}")
     rgemma = recurrentgemma_step(torch, args.seed + 9)
     print(f"recurrentgemma step {json.dumps(rgemma)}")
-    for what, d in (("xlstm", xdecode), ("recurrentgemma", rgemma["decode"])):
+    whisper, restored, live = whisper_train_path(
+        torch, scratch / "whisper", args.seed + 10, run_path)
+    shutil.rmtree(scratch / "whisper", ignore_errors=True)
+    by_path["whisper"] = whisper["launches"]
+    print(f"whisper train path {json.dumps(whisper)}")
+    serve = whisper_serve(torch, restored, live, args.seed + 11)
+    print(f"whisper serve from restore {json.dumps(serve)}")
+    del live
+    from repro_torch.configs import get_config
+
+    wdecode = decode_check(torch, get_config("whisper-medium"), restored,
+                           args.seed + 12, prompt=WHISPER_DECODE_PROMPT,
+                           f64_layers=F64_LAYERS, f32_tol=STUB_F32_TOL)
+    print(f"whisper decode {json.dumps(wdecode)}")
+    del restored
+    torch.cuda.empty_cache()
+    vision = vision_serve(torch, args.seed + 13)
+    print(f"vision serve {json.dumps(vision)}")
+    for what, d in (("xlstm", xdecode), ("recurrentgemma", rgemma["decode"]),
+                    ("whisper", wdecode), ("vision", vision["decode"])):
         if not d["ok"]:
             raise AssertionError(f"{what} decode differs from the forward "
-                                 f"pass beyond {DECODE_TOL}")
+                                 f"pass beyond its tolerance: {d}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],
                           xor_words=path["xor_words"],
                           train_rows=-(-train["shard_bytes"] // 8192),
-                          xlstm_rows=xlstm["largest_region_rows"])
+                          xlstm_rows=xlstm["largest_region_rows"],
+                          whisper_rows=whisper["largest_region_rows"])
     stats.update(check_delta_kernels(
         torch, gen, big_words=delta["big_words"], step_words=step_words,
         dirty_rows=delta["dirty_rows"], chunk=delta["chunk_words"]))
@@ -2583,7 +2918,7 @@ def main(argv=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s.get("library_ms"),
             "wrapper_ms": s.get("wrapper_ms"), "shape": s["shape"],
-            "xlstm": s.get("xlstm")})
+            "xlstm": s.get("xlstm"), "whisper": s.get("whisper")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

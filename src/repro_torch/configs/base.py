@@ -140,9 +140,9 @@ class ModelConfig:
         return count_params(self)
 
 
-#: The ported configurations: the dense and the recurrent families.  The
-#: JAX package's other architectures join with their model families
-#: (ROADMAP.md queue 1, item 9).
+#: The ported configurations: the dense, recurrent, encoder-decoder and
+#: vision-stub families.  The JAX package's MLA and MoE architectures join
+#: with their model families (ROADMAP.md queue 1, item 9 and its MoE note).
 _REGISTRY = {
     "veloc-demo-100m": "veloc_demo_100m",
     "minitron-8b": "minitron_8b",
@@ -150,6 +150,8 @@ _REGISTRY = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "xlstm-1.3b": "xlstm_1_3b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-medium": "whisper_medium",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
 }
 
 

@@ -1,6 +1,6 @@
-"""Dense transformer layers: RMSNorm, RoPE, the MLP variants and full, GQA
-and local (windowed) self-attention, with its one-token decode against a
-cache.
+"""Dense transformer layers: RMSNorm, RoPE, sinusoidal positions, the MLP
+variants, full, GQA and local (windowed) self-attention with its one-token
+decode against a cache, and the encoder-decoder's cross-attention.
 
 Parameters are plain nested dicts of tensors with the JAX package's names,
 shapes and dtypes (``repro.models.layers``).  Every matmul input is cast to
@@ -71,6 +71,16 @@ def rope(x, positions, theta=10_000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(T, d, dtype, device=None):
+    """(T, d) sinusoidal position encodings, sines then cosines, computed in
+    float32 (``wide``: float64 for a float64 ``dtype``) and cast."""
+    wd = torch.promote_types(dtype, torch.float32)
+    pos = torch.arange(T, dtype=wd, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=wd, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -171,27 +181,34 @@ def init_attn(gen, cfg, device):
             "wo": he(gen, (H, hd, d), dt, device, fan_in=H * hd)}
 
 
-def apply_attn(p, cfg, x, positions, *, window=0):
-    """Training self-attention (RoPE, ``cfg.causal``; ``window`` > 0 keeps
-    only the last ``window`` keys of each query)."""
+def apply_attn(p, cfg, x, positions, *, window=0, causal=None,
+               use_rope=True):
+    """Training / prefill self-attention: RoPE unless ``use_rope`` is
+    false (the encoder-decoder adds its positions to the input), causal as
+    ``cfg.causal`` unless ``causal`` says otherwise; ``window`` > 0 keeps
+    only the last ``window`` keys of each query."""
     ct = cdt(cfg)
     x = x.to(ct)
     H, K = cfg.num_heads, cfg.num_kv_heads
     q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(ct))
     k = torch.einsum("btd,dgk->btgk", x, p["wk"].to(ct))
     v = torch.einsum("btd,dgk->btgk", x, p["wv"].to(ct))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     k, v = repeat_kv(k, H // K), repeat_kv(v, H // K)
-    o = sdpa(q, k, v, causal=cfg.causal, window=window)
+    causal = cfg.causal if causal is None else causal
+    o = sdpa(q, k, v, causal=causal, window=window)
     return torch.einsum("bthk,hkd->btd", o, p["wo"].to(ct))
 
 
-def attn_decode(p, cfg, x, cache_k, cache_v, pos, *, window=0):
+def attn_decode(p, cfg, x, cache_k, cache_v, pos, *, window=0,
+                use_rope=True):
     """One-token decode.  x: (B,1,d); cache_(k|v): (B,S,K,hd); pos: the
     position of the token, the same for every batch row (an int or a 0-d
     integer tensor).  A local-attention cache is a ring of S slots (S =
-    min(window, context)), position p in slot p % window.
+    min(window, context)), position p in slot p % window.  Without
+    ``use_rope`` neither the query nor the cached key is rotated.
 
     Returns (out, new_k, new_v); the caches are new tensors."""
     ct = cdt(cfg)
@@ -204,9 +221,10 @@ def attn_decode(p, cfg, x, cache_k, cache_v, pos, *, window=0):
     S = cache_k.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
     slot = pos % window if window else pos
-    ppos = pos.reshape(1, 1).expand(B, 1)
-    q = rope(q, ppos, cfg.rope_theta)
-    k = rope(k, ppos, cfg.rope_theta)
+    if use_rope:
+        ppos = pos.reshape(1, 1).expand(B, 1)
+        q = rope(q, ppos, cfg.rope_theta)
+        k = rope(k, ppos, cfg.rope_theta)
     spos = torch.arange(S, device=x.device)
     smask = (spos == slot)[None, :, None, None]
     cache_k = torch.where(smask, k.to(cache_k.dtype), cache_k)
@@ -226,3 +244,29 @@ def attn_decode(p, cfg, x, cache_k, cache_v, pos, *, window=0):
     o = o.reshape(B, 1, H, hd)
     out = torch.einsum("bqhk,hkd->bqd", o, p["wo"].to(ct))
     return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def apply_cross_attn(p, cfg, x, enc_k, enc_v):
+    """x: (B,Tq,d); enc_k/enc_v: (B,Tk,H,hd) precomputed from the encoder
+    (``cross_kv``).  Non-causal, no RoPE."""
+    ct = cdt(cfg)
+    x = x.to(ct)
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(ct))
+    o = sdpa(q, enc_k.to(ct), enc_v.to(ct), causal=False)
+    return torch.einsum("bthk,hkd->btd", o, p["wo"].to(ct))
+
+
+def cross_kv(p, cfg, enc_out):
+    """The cross-attention keys and values of the encoder output
+    (B,Tk,d), each (B,Tk,H,hd) with the kv heads repeated to H."""
+    ct = cdt(cfg)
+    e = enc_out.to(ct)
+    k = torch.einsum("btd,dgk->btgk", e, p["wk"].to(ct))
+    v = torch.einsum("btd,dgk->btgk", e, p["wv"].to(ct))
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    return repeat_kv(k, n_rep), repeat_kv(v, n_rep)

@@ -11,10 +11,11 @@ group recomputed in the backward pass when ``cfg.remat``
 Ported block kinds: ``"attn"`` and ``"local_attn"`` with a dense MLP,
 xLSTM's ``"mlstm"`` and ``"slstm"`` (self-contained blocks) and RG-LRU's
 ``"rglru"`` (the recurrent mix, then a dense MLP), each with its prefill
-(forward plus the decode cache) and one-token decode.  The sharding
-constraints of the JAX package (``_constrain``, ``gather_fsdp``) have
-nothing to do on one card.  MLA and MoE blocks wait (ROADMAP.md queue 1,
-item 9).
+(forward plus the decode cache) and one-token decode.  ``extra_embeds``
+(the vision frontend stub's patch embeddings) are prepended to the token
+embeddings.  The sharding constraints of the JAX package (``_constrain``,
+``gather_fsdp``) have nothing to do on one card.  MLA and MoE blocks wait
+(ROADMAP.md queue 1, item 9, and its MoE note).
 """
 from __future__ import annotations
 
@@ -28,13 +29,23 @@ _PORTED_KINDS = ("attn", "local_attn", "mlstm", "slstm", "rglru")
 
 
 def _check_kind(cfg, kind: str):
-    if kind not in _PORTED_KINDS:
+    if kind not in _PORTED_KINDS or cfg.attention == "mla" or \
+            cfg.mla is not None:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 9)")
+            f"block kind {kind!r} (attention {cfg.attention!r}) is not "
+            f"ported yet: ROADMAP.md queue 1, item 9 has MLA, then the "
+            f"examples, left")
     if cfg.moe is not None:
         raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP.md queue 1, item 9)")
+            "MoE blocks are not ported yet: ROADMAP.md queue 1, item 9's "
+            "MoE note puts them after item 10")
+
+
+def check_config(cfg):
+    """Raise ``NotImplementedError`` for a configuration whose blocks the
+    port does not have yet (MLA, MoE)."""
+    for kind in cfg.block_pattern:
+        _check_kind(cfg, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -211,8 +222,13 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _embed(params, cfg, tokens):
-    return params["emb"][tokens].to(L.cdt(cfg))
+def _embed(params, cfg, tokens, extra_embeds=None):
+    """Token embeddings, after ``extra_embeds`` (B, P, d) when given (the
+    vision stub's patches)."""
+    x = params["emb"][tokens].to(L.cdt(cfg))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _logits(params, cfg, x):
@@ -247,10 +263,11 @@ def _scan_groups(params, cfg, x, apply_fn):
     return x
 
 
-def lm_forward(params, cfg, tokens):
-    """tokens: (B, T) integer -> (B, T, padded_vocab) float32 logits
-    (float64 with a float64 compute dtype)."""
-    x = _embed(params, cfg, tokens)
+def lm_forward(params, cfg, tokens, extra_embeds=None):
+    """tokens: (B, T) integer; extra_embeds: (B, P, d) prepended -> (B,
+    P + T, padded_vocab) float32 logits (float64 with a float64 compute
+    dtype)."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     x = _scan_groups(params, cfg, x,
@@ -260,10 +277,14 @@ def lm_forward(params, cfg, tokens):
 
 
 def lm_loss(params, cfg, batch):
-    """Mean next-token negative log-likelihood."""
+    """Mean next-token negative log-likelihood of the text tokens; the
+    patches (``batch["patches"]``, when present) are context only."""
     tokens = batch["tokens"]
-    logits = lm_forward(params, cfg, tokens)
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    extra = batch.get("patches")
+    logits = lm_forward(params, cfg, tokens, extra_embeds=extra)
+    P = 0 if extra is None else extra.shape[1]
+    # predict token t+1 from text position t
+    logp = torch.log_softmax(logits[:, P:-1], dim=-1)
     targets = tokens[:, 1:].long()
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return nll.mean()
@@ -272,13 +293,14 @@ def lm_loss(params, cfg, batch):
 # ---- prefill / decode -----------------------------------------------------
 
 
-def lm_prefill(params, cfg, tokens, cache_len=None):
+def lm_prefill(params, cfg, tokens, cache_len=None, extra_embeds=None):
     """tokens: (B, T) -> (last_logits (B, V), cache), the cache stacked like
     the parameters: ``{"blocks": tuple over the pattern, each stacked over
     the groups, "rem": tuple}``.  ``cache_len`` sizes the attention caches
     for decoding past the prompt (``_attn_cache``); the recurrent carries
-    do not depend on it."""
-    x = _embed(params, cfg, tokens)
+    do not depend on it.  ``extra_embeds`` (B, P, d) are prepended, so the
+    caches hold P + T positions."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     pat, n_groups, rem = _pattern(cfg)

@@ -2,8 +2,12 @@
 batch), so a restarted job resumes mid-stream with identical data.
 
 Batches are drawn with numpy from ``default_rng((seed, step))`` exactly as
-the JAX package's ``SyntheticStream`` draws them, so both packages see the
-same tokens bit for bit, and are placed on an explicit device.
+the JAX package's ``SyntheticStream`` draws them, entry by entry in
+``batch_struct`` order, so both packages see the same tokens and the same
+frame or patch embeddings bit for bit, and are placed on an explicit
+device.  numpy has no bfloat16: a float entry is drawn in float64 and
+rounded once to the compute dtype by torch, as ml_dtypes' ``astype``
+rounds it in the JAX package.
 """
 from __future__ import annotations
 
@@ -11,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCfg
-from repro_torch.models.model import batch_struct
+from repro_torch.models.model import batch_struct, float_tensor
 
 
 class SyntheticStream:
@@ -24,9 +28,14 @@ class SyntheticStream:
         self._struct = batch_struct(cfg, shape, kind="train")
 
     def batch_numpy(self, step: int) -> dict:
+        """The draws of ``step``: integer entries in their dtype, float
+        entries in float64, before their rounding to the compute dtype."""
         rng = np.random.default_rng((self.seed, step))
         out = {}
         for name, s in self._struct.items():
+            if s.dtype != "int32":
+                out[name] = rng.standard_normal(s.shape) * 0.02
+                continue
             # zipf-ish marginal over the vocab, cheap to sample
             u = rng.random(s.shape)
             toks = (self.cfg.vocab_size * u ** 2.2).astype(np.int64)
@@ -35,5 +44,10 @@ class SyntheticStream:
         return out
 
     def batch(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.batch_numpy(step).items()}
+        out = {}
+        for name, arr in self.batch_numpy(step).items():
+            s = self._struct[name]
+            out[name] = torch.from_numpy(arr).to(self.device) \
+                if s.dtype == "int32" else \
+                float_tensor(arr, s.dtype, self.device)
+        return out

@@ -1,5 +1,5 @@
-"""Training state and step of the dense family, and the state's exchange
-with the JAX package.
+"""Training state and step of the ported model families, and the state's
+exchange with the JAX package.
 
 ``init_train_state`` builds ``{"params", "opt": {"m", "v", "step"}}`` with
 the tree paths, shapes and dtypes of ``repro.train.steps.init_train_state``
@@ -35,8 +35,9 @@ from repro_torch.train import optimizer as opt_lib
 
 def init_train_state(cfg: ModelConfig, *, generator: torch.Generator = None,
                      device="cuda"):
-    """Dense-family train state on ``device``: the layer stack stacked along
-    a leading dimension per block kind, as the JAX package lays it out."""
+    """Train state on ``device`` for any ported family: the layer stacks
+    stacked along a leading dimension (per block kind, or per encoder and
+    decoder stack), as the JAX package lays them out."""
     device = check_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)

@@ -59,8 +59,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_import_walk_covers_the_workload_modules():
     """The walk above reaches the training workload's modules, the
-    recurrent blocks and the predictors (each subpackage has an
-    ``__init__``)."""
+    recurrent blocks, the encoder-decoder and the predictors (each
+    subpackage has an ``__init__``)."""
     import pkgutil
 
     import repro_torch
@@ -71,6 +71,9 @@ def test_import_walk_covers_the_workload_modules():
             "repro_torch.models.recurrent",
             "repro_torch.configs.xlstm_1_3b",
             "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.models.encdec",
+            "repro_torch.configs.whisper_medium",
+            "repro_torch.configs.phi3_vision_4_2b",
             "repro_torch.models.model", "repro_torch.train.optimizer",
             "repro_torch.train.data", "repro_torch.train.steps",
             "repro_torch.launch.train", "repro_torch.core.phases",

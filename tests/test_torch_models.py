@@ -19,7 +19,14 @@ input 5-10x a layer (the cell divides by max(|q.n|, exp(-m)), small where
 the gates have forgotten), so the 8-layer xLSTM's logits differ by up to
 2.3e-4 and its gradients by up to 1.1e-4 of a leaf's largest element:
 ``F32_TOL`` holds it to atol 1e-3 (logits) and rtol 1e-3, atol 1e-3 x the
-leaf's largest element (gradients)."""
+leaf's largest element (gradients).
+
+The vision frontend stub (phi-3-vision-4.2b) is held at the dense
+tolerances above, its patch embeddings prepended: the forward, the loss
+over the text positions and every gradient leaf in f32, the bf16 loss, and
+prefill.  The encoder-decoder has its own file (``test_torch_encdec``).
+MLA and MoE stay refused: ``get_config`` raises ``KeyError`` for their
+archs, and every entry point ``NotImplementedError`` for such a config."""
 import dataclasses
 
 import jax
@@ -48,6 +55,7 @@ from repro_torch.train import steps as tsteps
 
 DENSE = ["veloc-demo-100m", "minitron-8b", "yi-9b", "phi3-mini-3.8b"]
 RECURRENT = ["xlstm-1.3b", "recurrentgemma-2b"]
+STUBS = ["whisper-medium", "phi-3-vision-4.2b"]  # frontend-stub families
 SM = tbase.ShapeCfg("smoke", 32, 2, "train")
 
 # smoke-size variants held against the JAX package: (arch, overrides)
@@ -382,36 +390,162 @@ def test_param_counts_match_published():
     (the JAX test's table)."""
     expect = {"yi-9b": (8.8e9, 0.1), "phi3-mini-3.8b": (3.8e9, 0.1),
               "minitron-8b": (7.7e9, 0.15), "veloc-demo-100m": (8.3e7, 0.01),
-              "xlstm-1.3b": (1.9e9, 0.5), "recurrentgemma-2b": (3.5e9, 0.5)}
+              "xlstm-1.3b": (1.9e9, 0.5), "recurrentgemma-2b": (3.5e9, 0.5),
+              "whisper-medium": (0.8e9, 0.3)}
     for arch, (want, tol) in expect.items():
         got = tbase.get_config(arch).param_counts()["total"]
         assert abs(got - want) / want < tol, (arch, got, want)
 
 
 def test_registry_is_the_dense_family():
-    """The registry is the ported families, dense and recurrent, each
-    config equal to the JAX package's."""
-    assert set(tbase.list_configs()) == set(DENSE + RECURRENT)
-    for arch in DENSE + RECURRENT:
+    """The registry is the ported families, dense, recurrent,
+    encoder-decoder and vision stub, each config equal to the JAX
+    package's."""
+    assert set(tbase.list_configs()) == set(DENSE + RECURRENT + STUBS)
+    for arch in DENSE + RECURRENT + STUBS:
         for get in ("get_config", "smoke_config"):
             assert dataclasses.asdict(getattr(tbase, get)(arch)) == \
                 dataclasses.asdict(getattr(jbase, get)(arch))
 
 
 def test_unported_families_raise():
+    """MLA (the block kind, or ``attention="mla"`` as minicpm3-4b sets it)
+    and MoE raise in every entry point, naming what ROADMAP.md has left;
+    the encoder-decoder and the vision stub are ported."""
     cfg = tbase.smoke_config("veloc-demo-100m")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmodel.init_model(cfg.replace(block_pattern=("mla",)),
-                          generator=gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmodel.init_model(cfg.replace(is_encoder_decoder=True),
-                          generator=gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmodel.batch_struct(cfg.replace(frontend="vision"), SM)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmodel.init_model(cfg.replace(moe=tbase.MoECfg(4, 2, 32)),
-                          generator=gen, device="cpu")
+    mla = tbase.MLACfg(32, 16, 8, 8, 8)
+    for bad in (cfg.replace(block_pattern=("mla",)),
+                cfg.replace(attention="mla", mla=mla)):
+        with pytest.raises(NotImplementedError,
+                           match="item 9 has MLA, then the examples"):
+            tmodel.init_model(bad, generator=gen, device="cpu")
+        for fn in (tmodel.count_params, lambda c: tmodel.batch_struct(c, SM),
+                   tmodel.make_loss_fn, tmodel.make_decode_fn):
+            with pytest.raises(NotImplementedError, match="item 9"):
+                fn(bad)
+    moe = cfg.replace(moe=tbase.MoECfg(4, 2, 32))
+    for fn in (lambda c: tmodel.init_model(c, generator=gen, device="cpu"),
+               lambda c: tmodel.batch_struct(c, SM), tmodel.make_prefill_fn,
+               lambda c: tmodel.cache_init(c, 2, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match="MoE note"):
+            fn(moe)
+    for ok in (cfg.replace(is_encoder_decoder=True, enc_layers=1),
+               cfg.replace(frontend="vision", num_patches=2)):
+        tmodel.init_model(ok, generator=gen, device="cpu")
+        tmodel.batch_struct(ok, SM)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "grok-1-314b",
+                                  "kimi-k2-1t-a32b"])
+def test_unported_archs_stay_out_of_the_registry(arch):
+    """The JAX package's MLA and MoE archs are not in the port's registry:
+    ``get_config`` and ``smoke_config`` raise ``KeyError``; their JAX
+    configs, carried across, raise ``NotImplementedError``."""
+    assert arch in jbase.list_configs()
+    with pytest.raises(KeyError):
+        tbase.get_config(arch)
+    with pytest.raises(KeyError):
+        tbase.smoke_config(arch)
+    jcfg = jbase.smoke_config(arch)
+    fields = dataclasses.asdict(jcfg)
+    fields["mla"] = None if jcfg.mla is None else tbase.MLACfg(
+        **fields["mla"])
+    fields["moe"] = None if jcfg.moe is None else tbase.MoECfg(
+        **fields["moe"])
+    tcfg = tbase.ModelConfig(**fields)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        tmodel.count_params(tcfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        tmodel.batch_struct(tcfg, SM)
+
+
+# ---------------------------------------------------------------------------
+# the vision frontend stub (phi-3-vision-4.2b)
+# ---------------------------------------------------------------------------
+
+
+def _vision(seed=0, compute="float32", **over):
+    arch = "phi-3-vision-4.2b"
+    jcfg = jbase.smoke_config(arch).replace(compute_dtype=compute, **over)
+    tcfg = tbase.smoke_config(arch).replace(compute_dtype=compute, **over)
+    jparams = jmodel.init_model(jax.random.PRNGKey(seed), jcfg)
+    rng = np.random.default_rng(seed + 1)
+    patches = (rng.standard_normal((2, jcfg.num_patches, jcfg.d_model))
+               * 0.02).astype(np.float32)
+    return jcfg, tcfg, jparams, _tokens(jcfg, seed + 2, T=20), patches
+
+
+@pytest.mark.parametrize("over", [{}, dict(remat=True, vocab_size=500)])
+def test_vision_f32_forward_loss_grads_match_jax(over):
+    """Patches prepended: the logits over patches and text, the loss over
+    the text positions only (``logits[:, P:-1]``) and every gradient
+    leaf, at the dense f32 tolerances."""
+    jcfg, tcfg, jparams, toks, patches = _vision(**over)
+    tparams = _port(jparams)
+    jlogits = jTF.lm_forward(jparams, jcfg, jnp.asarray(toks),
+                             extra_embeds=jnp.asarray(patches))
+    tlogits = tTF.lm_forward(tparams, tcfg, torch.from_numpy(toks),
+                             extra_embeds=torch.from_numpy(patches))
+    assert tlogits.shape[1] == jcfg.num_patches + toks.shape[1]
+    np.testing.assert_allclose(tlogits.detach().numpy(), np.asarray(jlogits),
+                               rtol=1e-5, atol=1e-5)
+    jb = {"tokens": jnp.asarray(toks), "patches": jnp.asarray(patches)}
+    jloss, jgrads = jax.value_and_grad(jmodel.make_loss_fn(jcfg))(jparams,
+                                                                  jb)
+    leaves = [t.requires_grad_() for _, t in leaves_with_paths(tparams)]
+    tloss = tmodel.make_loss_fn(tcfg)(
+        tparams, {"tokens": torch.from_numpy(toks),
+                  "patches": torch.from_numpy(patches)})
+    grads = torch.autograd.grad(tloss, leaves)
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss),
+                               rtol=1e-5, atol=1e-6)
+    want = _jax_leaves(jgrads)
+    assert len(grads) == len(want)
+    for g, (name, w) in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_vision_bf16_loss_close_to_jax():
+    arch = "phi-3-vision-4.2b"
+    jcfg, tcfg = jbase.smoke_config(arch), tbase.smoke_config(arch)
+    jparams = jmodel.init_model(jax.random.PRNGKey(4), jcfg)
+    batch = jmodel.make_batch(jcfg, jbase.ShapeCfg("s", 24, 2, "train"),
+                              seed=3)
+    tbatch = tmodel.make_batch(tcfg, tbase.ShapeCfg("s", 24, 2, "train"),
+                               seed=3, device="cpu")
+    jloss = jTF.lm_loss(jparams, jcfg, batch)
+    tloss = tTF.lm_loss(_port(jparams), tcfg, tbatch)
+    assert abs(float(tloss) - float(jloss)) < 2e-2
+
+
+def test_vision_prefill_matches_jax_and_decode_continues():
+    """``lm_prefill`` with the patches: the last logits and the caches (P +
+    T positions) against JAX's; with ``cache_len`` the decode steps after
+    the prompt continue the forward pass, at the dense f32 tolerances."""
+    jcfg, tcfg, jparams, toks, patches = _vision(seed=5)
+    tparams = _port(jparams)
+    T = 12
+    jl, jc = jax.jit(jmodel.make_prefill_fn(jcfg))(
+        jparams, {"tokens": jnp.asarray(toks[:, :T]),
+                  "patches": jnp.asarray(patches)})
+    tb = {"tokens": torch.from_numpy(toks[:, :T]),
+          "patches": torch.from_numpy(patches)}
+    tl, tc = tmodel.make_prefill_fn(tcfg)(tparams, tb)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                               atol=1e-5)
+    _assert_tree_close(tc, jc, rtol=1e-5, atol=1e-5)
+    P, S = jcfg.num_patches, jcfg.num_patches + toks.shape[1]
+    full = tTF.lm_forward(tparams, tcfg, torch.from_numpy(toks),
+                          extra_embeds=torch.from_numpy(patches))
+    _, cache = tmodel.make_prefill_fn(tcfg, cache_len=S)(tparams, tb)
+    decode = tmodel.make_decode_fn(tcfg)
+    for i in range(T, toks.shape[1]):
+        lg, cache = decode(tparams, cache, torch.from_numpy(toks[:, i:i + 1]),
+                           P + i)
+        np.testing.assert_allclose(lg.numpy(), full[:, P + i].numpy(),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_train_state_init_on_cuda_without_gpu_raises():
