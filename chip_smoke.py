@@ -115,6 +115,8 @@ any failure (the script then exits non-zero):
      client's v4 and the live trainer's v4 each prefill frames (2, 1500,
      1024) and a 4-token prompt (self caches of ``dec_max_len``) and
      decode 16 greedy steps in bf16; logits and tokens equal bit for bit;
+     the encoder's position table computed on the card beside the CPU's
+     (``sinusoidal_gap``, largest gap printed);
      then ``whisper decode`` (``decode_check`` on the restored v4: prefill
      of 400 tokens and 16 decode steps against ``decode_train``, f32 at
      full depth within ``STUB_F32_TOL``, float64 cut to ``F64_LAYERS``
@@ -123,6 +125,19 @@ any failure (the script then exits non-zero):
      and depth from a seeded initialisation, 4 rows of 576 patches and 240
      text tokens served in bf16 (prefill, 16 greedy steps), then its
      decode check as in 7g;
+  7i. ``examples`` (``examples_path``): the port's five examples
+     (``repro_torch.examples``: quickstart, incremental, serve,
+     branch_explore, train_resilient) on the card at their own sizes, each
+     to its "OK": seconds, checksum and block-hash launches, incremental's
+     per-version table, serve's replica held to the primary bit for bit;
+  7j. ``serve clone`` (``serve_clone``): DeepClone at full width,
+     phi3-mini-3.8b whole serving 4 rows (prefill 256 tokens into caches of
+     512, 32 greedy bf16 steps); after step 12 an async checkpoint clones
+     params, caches, token and position while decoding goes on until the
+     clone has drained; a fresh client restores it from a ``meta`` template
+     and continues: logits and tokens bit for bit, per-leaf tables equal;
+     app blocking, decode ms before, during and after the drain, drain,
+     fresh restore, peak device memory;
   8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
      checksum rows, the train path's one-rank shard and the xlstm and
@@ -1910,14 +1925,18 @@ class MemorySampler:
         self._thread.join(timeout=10)
 
 
-def snapshot_release(samples: list, results: dict, state_bytes: int
-                     ) -> dict:
+def snapshot_release(samples: list, results: dict, state_bytes: int,
+                     t_call: float | None = None) -> dict:
     """When the backend dropped a standalone checkpoint's device snapshot:
     the first reading after the call at which the allocated bytes fell by
     at least half the state at once (a step frees at most its gradients,
     a third of it), beside the end of the device-to-host copy and of the
-    L3 flush, all in seconds after the call (the first stage's end)."""
-    t_call = min(v for k, v in results.items() if k.endswith(".done_at"))
+    L3 flush, all in seconds after the call (``t_call`` on the monotonic
+    clock; by default the first stage's end, the trainer's interval
+    stage)."""
+    if t_call is None:
+        t_call = min(v for k, v in results.items()
+                     if k.endswith(".done_at"))
     released = None
     for (_, before), (t, after) in zip(samples, samples[1:]):
         if t > t_call and before - after >= state_bytes // 2:
@@ -2631,6 +2650,270 @@ def vision_serve(torch, seed: int) -> dict:
     return out
 
 
+def sinusoidal_gap(torch) -> dict:
+    """whisper-medium's encoder position table (T = 1500, d = 1024,
+    ``layers.sinusoidal_pos``) computed on the card beside the CPU's and a
+    float64 table rounded once to f32: the largest gaps and the entries
+    that differ.  Torch's CUDA ``sin``/``cos`` may round otherwise than
+    its CPU ones."""
+    from repro_torch.models.layers import sinusoidal_pos
+
+    T, d = WHISPER_FRAMES, 1024
+    card = sinusoidal_pos(T, d, torch.float32, device="cuda").cpu()
+    cpu = sinusoidal_pos(T, d, torch.float32, device="cpu")
+    f64 = sinusoidal_pos(T, d, torch.float64, device="cpu").float()
+    out = {"T": T, "d": d,
+           "cuda_vs_cpu": float((card - cpu).abs().max()),
+           "cuda_vs_cpu_unequal": int((card != cpu).sum()),
+           "cuda_vs_float64": float((card - f64).abs().max()),
+           "cpu_vs_float64": float((cpu - f64).abs().max())}
+    print(f"sinusoidal_pos (T={T}, d={d}): card vs CPU largest gap "
+          f"{out['cuda_vs_cpu']:.3e} ({out['cuda_vs_cpu_unequal']} entries "
+          f"differ); card vs float64 {out['cuda_vs_float64']:.3e}, CPU vs "
+          f"float64 {out['cpu_vs_float64']:.3e}")
+    return out
+
+
+EXAMPLES = ("quickstart", "incremental", "serve", "branch_explore",
+            "train_resilient")
+
+
+def examples_path(torch, scratch: Path, counters: dict) -> dict:
+    """The port's five examples (``repro_torch.examples``) on the card at
+    their own sizes, each through its ``main`` to its "OK" with
+    ``--scratch`` under ``scratch``: per example the seconds it took, its
+    checksum and block-hash launches, and what it returned (the
+    incremental per-version table; serve's replica held to the primary's
+    logits and tokens bit for bit, under deterministic algorithms)."""
+    import importlib
+
+    import numpy as np
+
+    out = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        before = {k: c.value for k, c in counters.items()}
+        deterministic = name == "serve"
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        t0 = time.perf_counter()
+        try:
+            res = mod.main(["--scratch", str(scratch / name)])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        entry = {"s": time.perf_counter() - t0,
+                 "launches": {k: counters[k].value - before[k]
+                              for k in ("checksum", "blockhash")}}
+        if name == "quickstart":
+            entry.update(blocking_ms=res["blocking_ms"],
+                         levels=res["levels"], restored=res["version"])
+        elif name == "incremental":
+            entry.update(table=[list(r) for r in res["table"]],
+                         chain=res["chain"], compacted=res["compacted"])
+        elif name == "serve":
+            equal = np.array_equal(res["replica_logits"],
+                                   res["logits"][:, 12:])
+            same = np.array_equal(res["replica"], res["primary"][:, 12:])
+            entry.update(blocked_ms=res["blocked_ms"], logits_equal=equal,
+                         tokens_equal=same,
+                         tokens=res["primary"].tolist())
+            if not (equal and same):
+                raise AssertionError(f"serve example: the replica differs "
+                                     f"from the primary: {entry}")
+        elif name == "branch_explore":
+            entry.update(trunk_loss=res["trunk_loss"],
+                         branches=res["results"], best=res["best"])
+        else:
+            entry.update(loss_first=res.losses[0], loss_last=res.losses[-1],
+                         steps=len(res.losses),
+                         recovered=res.recovered_version,
+                         app_blocking_ms=[b * 1e3 for b in
+                                          res.app_blocking_s],
+                         drain_s=res.drain_s)
+        if entry["launches"]["checksum"] <= 0:
+            raise AssertionError(f"example {name}: no checksum launch")
+        out[name] = entry
+        print(f"example {name}: OK in {entry['s']:.1f} s, launches "
+              f"{entry['launches']}")
+        shutil.rmtree(scratch / name, ignore_errors=True)
+    if out["incremental"]["launches"]["blockhash"] <= 0:
+        raise AssertionError("example incremental: no block-hash launch")
+    return out
+
+
+#: the live clone at full width: rows, prompt, context, greedy steps
+#: compared, the step after which the clone is taken, steps timed after
+#: the drain
+CLONE_ARCH = "phi3-mini-3.8b"
+CLONE_PARAMS = 3_822_259_200
+CLONE_ROWS, CLONE_PROMPT, CLONE_CONTEXT = 4, 256, 512
+CLONE_STEPS, CLONE_AT, CLONE_AFTER = 32, 12, 8
+
+
+def serve_clone(torch, scratch: Path, seed: int) -> dict:
+    """DeepClone at full width: phi3-mini-3.8b whole (32 layers, d_model
+    3072, 32 heads, d_ff 8192, vocab 32,064; 3,822,259,200 parameters, 15.3
+    GB in f32) from a seeded initialisation on the card serves
+    ``CLONE_ROWS`` rows: a prefill of ``CLONE_PROMPT`` tokens into caches
+    of ``CLONE_CONTEXT``, then ``CLONE_STEPS`` greedy decode steps in bf16.
+    After step ``CLONE_AT`` an async serialize/local/flush checkpoint takes
+    the serving state (params, caches, token, position) while decoding
+    goes on, and goes on past the compared steps until the clone has
+    drained (then ``CLONE_AFTER`` more).  A fresh client on the same
+    scratch restores the clone from a ``meta`` template (no memory) and
+    continues to step ``CLONE_STEPS``: its logits and tokens must equal
+    the primary's bit for bit (deterministic algorithms), and its params'
+    and caches' per-leaf Fletcher tables the live ones'."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ModuleSpec, PipelineSpec, VelocClient
+    from repro_torch.core.capture import leaves_with_paths
+    from repro_torch.models.model import (cache_init, count_params,
+                                          init_model, make_decode_fn,
+                                          make_prefill_fn)
+
+    cfg = get_config(CLONE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_model(cfg, generator=gen, device="cuda")
+    n = sum(t.numel() for _, t in leaves_with_paths(params))
+    if not n == count_params(cfg)["total"] == CLONE_PARAMS:
+        raise AssertionError(f"{CLONE_ARCH}: {n} parameters")
+    prompt = torch.randint(0, cfg.vocab_size, (CLONE_ROWS, CLONE_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    spec = PipelineSpec(name="serve-clone", mode="async", modules=[
+        ModuleSpec("serialize"), ModuleSpec("local"), ModuleSpec("flush")])
+    client = VelocClient(spec, scratch=str(scratch))
+    decode = make_decode_fn(cfg)
+    step_ms = {"before": [], "drain": [], "after": []}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad(), MemorySampler(torch) as mem:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = make_prefill_fn(cfg, cache_len=CLONE_CONTEXT)(
+                params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+            rows, toks, fut = [], [tok], None
+            pos, context_wait_s = CLONE_PROMPT, 0.0
+            while fut is None or pos < CLONE_PROMPT + CLONE_STEPS or \
+                    len(step_ms["after"]) < CLONE_AFTER:
+                phase = "before" if fut is None else (
+                    "after" if fut.done() else "drain")
+                if phase == "drain" and pos + CLONE_AFTER >= CLONE_CONTEXT:
+                    t0 = time.perf_counter()  # no room left: wait
+                    fut.result(timeout=600)
+                    context_wait_s = time.perf_counter() - t0
+                    continue
+                t0 = time.perf_counter()
+                lg, cache = decode(params, cache, tok, pos)
+                tok = lg.argmax(-1)[:, None].to(torch.int32)
+                torch.cuda.synchronize()
+                step_ms[phase].append((time.perf_counter() - t0) * 1e3)
+                pos += 1
+                if pos <= CLONE_PROMPT + CLONE_STEPS:
+                    rows.append(lg)
+                    toks.append(tok)
+                if pos == CLONE_PROMPT + CLONE_AT:
+                    clone = {"params": params, "cache": cache, "tok": tok,
+                             "pos": torch.tensor(pos - 1, dtype=torch.int32,
+                                                 device="cuda")}
+                    t_clone = time.monotonic()
+                    fut = client.checkpoint(clone, version=1,
+                                            meta={"pos": pos - 1})
+                    call_s = time.monotonic() - t_clone
+                    blocking_s = fut.results["app_blocking_s"]
+            fut.result(timeout=600)
+            drain_s = max(v for k, v in fut.results.items()
+                          if k.endswith(".done_at")) - t_clone
+        clone_bytes = sum(t.numel() * t.element_size()
+                          for _, t in leaves_with_paths(clone))
+        release = snapshot_release(mem.samples, fut.results, clone_bytes,
+                                   t_call=t_clone)
+        served = pos - CLONE_PROMPT
+        client.shutdown()
+        del cache, lg
+        gc.collect()
+
+        # --- the replica: a fresh client, a template of no memory ---------
+        template = {"params": init_model(cfg, generator=torch.Generator(),
+                                         device="meta"),
+                    "cache": cache_init(cfg, CLONE_ROWS, CLONE_CONTEXT,
+                                        device="meta"),
+                    "tok": torch.empty((CLONE_ROWS, 1), dtype=torch.int32,
+                                       device="meta"),
+                    "pos": torch.empty((), dtype=torch.int32, device="meta")}
+        fresh = VelocClient(spec, scratch=str(scratch))
+        t0 = time.perf_counter()
+        v, snap = fresh.restart_latest(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        fresh.shutdown()
+        if v != 1:
+            raise AssertionError(f"serve clone: the fresh client restored "
+                                 f"v{v}: {fresh.restart_diagnostics}")
+        if any(t.device.type != "cuda" for _, t in leaves_with_paths(snap)):
+            raise AssertionError("serve clone: a restored leaf is not on "
+                                 "the card")
+        _assert_tables_equal(state_tables(torch, snap["params"]),
+                             state_tables(torch, clone["params"]),
+                             "serve clone params")
+        _assert_tables_equal(state_tables(torch, snap["cache"]),
+                             state_tables(torch, clone["cache"]),
+                             "serve clone caches")
+        if not (torch.equal(snap["tok"], clone["tok"])
+                and int(snap["pos"]) == int(clone["pos"])):
+            raise AssertionError("serve clone: token or position differs")
+        with torch.no_grad():
+            r_cache, r_tok, r_rows, r_toks = snap["cache"], snap["tok"], \
+                [], []
+            for p in range(int(snap["pos"]) + 1,
+                           CLONE_PROMPT + CLONE_STEPS):
+                lg, r_cache = decode(snap["params"], r_cache, r_tok, p)
+                r_tok = lg.argmax(-1)[:, None].to(torch.int32)
+                r_rows.append(lg)
+                r_toks.append(r_tok)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    live_rows = torch.stack(rows[CLONE_AT:], 1)
+    live_toks = torch.cat(toks[CLONE_AT + 1:], 1)
+    got_rows, got_toks = torch.stack(r_rows, 1), torch.cat(r_toks, 1)
+    out = {"config": {"arch": CLONE_ARCH, "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "params": n,
+                      "rows": CLONE_ROWS, "prompt": CLONE_PROMPT,
+                      "context": CLONE_CONTEXT, "steps": CLONE_STEPS,
+                      "clone_after_step": CLONE_AT,
+                      "compute": cfg.compute_dtype,
+                      "clone_bytes": clone_bytes,
+                      "cache_bytes": sum(
+                          t.numel() * t.element_size()
+                          for _, t in leaves_with_paths(clone["cache"]))},
+           "logits_equal": torch.equal(got_rows, live_rows),
+           "tokens_equal": torch.equal(got_toks, live_toks),
+           "replica_steps": got_rows.shape[1],
+           "finite": bool(torch.isfinite(live_rows).all()),
+           "tables_equal": True,
+           "app_blocking_ms": blocking_s * 1e3, "call_ms": call_s * 1e3,
+           "prefill_ms": prefill_ms,
+           "decode_ms_per_step": {k: _stats(v) if v else None
+                                  for k, v in step_ms.items()},
+           "steps_served": served,
+           "steps_during_drain": len(step_ms["drain"]),
+           "context_full_wait_s": context_wait_s,
+           "drain_s": drain_s, "snapshot": release,
+           "fresh_restore_s": restore_s,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "host": _host_memory()}
+    if not (out["logits_equal"] and out["tokens_equal"] and out["finite"]):
+        raise AssertionError(f"serve clone: the replica differs from the "
+                             f"primary: {out}")
+    return out
+
+
 def _assert_tree_equal(torch, got, want, what: str):
     from repro_torch.core.capture import leaves_with_paths
 
@@ -2860,6 +3143,7 @@ def main(argv=None) -> int:
     by_path["whisper"] = whisper["launches"]
     print(f"whisper train path {json.dumps(whisper)}")
     serve = whisper_serve(torch, restored, live, args.seed + 11)
+    serve["sinusoidal_pos"] = sinusoidal_gap(torch)
     print(f"whisper serve from restore {json.dumps(serve)}")
     del live
     from repro_torch.configs import get_config
@@ -2877,6 +3161,17 @@ def main(argv=None) -> int:
         if not d["ok"]:
             raise AssertionError(f"{what} decode differs from the forward "
                                  f"pass beyond its tolerance: {d}")
+    examples, by_path["examples"] = run_path(
+        "examples", ("checksum", "blockhash"),
+        lambda: examples_path(torch, scratch / "examples", counters))
+    shutil.rmtree(scratch / "examples", ignore_errors=True)
+    print(f"examples {json.dumps(examples)}")
+    clone, by_path["serve_clone"] = run_path(
+        "serve clone", ("checksum",),
+        lambda: serve_clone(torch, scratch / "serve_clone", args.seed + 14))
+    shutil.rmtree(scratch / "serve_clone", ignore_errors=True)
+    clone["launches"] = by_path["serve_clone"]
+    print(f"serve clone {json.dumps(clone)}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],

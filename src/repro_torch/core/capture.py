@@ -433,7 +433,9 @@ def _assemble(name: str, shape, regions: dict):
 def tree_from_regions(template, regions: dict, shardings=None):
     """Rebuild a tree from {path: array}: each leaf takes the shape, dtype
     and device of the matching template leaf (a numpy or scalar template
-    leaf gives a CPU tensor)."""
+    leaf gives a CPU tensor; a ``meta`` tensor, a template that holds no
+    memory as ``jax.eval_shape``'s does, lands on the package's device as
+    a ``ShapeDtypeStruct`` leaf lands on JAX's default device)."""
     if shardings is not None:
         raise NotImplementedError(
             "sharded restore is not ported yet (ROADMAP.md queue 1, item 10)")
@@ -442,6 +444,8 @@ def tree_from_regions(template, regions: dict, shardings=None):
         name = _path_str(path)
         if isinstance(leaf, torch.Tensor):
             shape, dtype, device = leaf.shape, leaf.dtype, leaf.device
+            if device.type == "meta":
+                device = kops.check_device()
         else:
             a = np.asarray(leaf)
             shape, dtype, device = a.shape, _torch_dtype(a.dtype), "cpu"

@@ -75,11 +75,14 @@ def rope(x, positions, theta=10_000.0):
 
 def sinusoidal_pos(T, d, dtype, device=None):
     """(T, d) sinusoidal position encodings, sines then cosines, computed in
-    float32 (``wide``: float64 for a float64 ``dtype``) and cast."""
+    float32 (``wide``: float64 for a float64 ``dtype``) and cast.  The
+    factor ``10000 ** (2i/d)`` is computed in float64 and rounded once:
+    XLA's f32 ``pow`` is correctly rounded, torch's can miss by an ulp,
+    which an angle of up to T rad magnifies (3e-5 at d = 1024, T = 1500)."""
     wd = torch.promote_types(dtype, torch.float32)
     pos = torch.arange(T, dtype=wd, device=device)[:, None]
     i = torch.arange(d // 2, dtype=wd, device=device)[None, :]
-    ang = pos / (10_000.0 ** (2 * i / d))
+    ang = pos / (10_000.0 ** (2 * i / d).double()).to(wd)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 

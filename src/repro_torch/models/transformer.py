@@ -33,8 +33,8 @@ def _check_kind(cfg, kind: str):
             cfg.mla is not None:
         raise NotImplementedError(
             f"block kind {kind!r} (attention {cfg.attention!r}) is not "
-            f"ported yet: ROADMAP.md queue 1, item 9 has MLA, then the "
-            f"examples, left")
+            f"ported yet: ROADMAP.md queue 1, item 9 has MLA left (item "
+            f"9b)")
     if cfg.moe is not None:
         raise NotImplementedError(
             "MoE blocks are not ported yet: ROADMAP.md queue 1, item 9's "

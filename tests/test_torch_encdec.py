@@ -114,28 +114,37 @@ def _setup(seed=1, **over):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_sinusoidal_pos_matches_jax(dtype):
-    """Up to whisper's 1500 positions.  An angle up to 1499 rad is a
-    quotient by a float32 power, each rounded to half an ulp, and the two
-    packages' ``pow`` may differ by an ulp: the angles, hence the sines,
-    agree within 2 ulps of 1500 in float32 (2.5e-4), within 1e-6 over the
-    first 64 positions, and within one bf16 step (2^-7) once rounded."""
-    want = np.asarray(jL.sinusoidal_pos(1500, 64, jnp.dtype(dtype)),
+@pytest.mark.parametrize("dtype,d", [
+    ("float32", 64), ("bfloat16", 64), ("float32", 1024), ("bfloat16", 1024)],
+    ids=["float32", "bfloat16", "float32-d1024", "bfloat16-d1024"])
+def test_sinusoidal_pos_matches_jax(dtype, d):
+    """Up to whisper's 1500 positions, at d = 64 and at whisper-medium's
+    d = 1024.  An angle up to 1499 rad is a quotient by a float32 power,
+    each rounded to half an ulp: at d = 64 the sines agree within 2 ulps
+    of 1500 in float32 (2.5e-4), within 1e-6 over the first 64 positions,
+    and within one bf16 step (2^-7) once rounded.  The port rounds the
+    power once from float64, as XLA's correctly rounded f32 ``pow`` does:
+    at d = 1024 the tables then differ by one ulp of a sine, 2^-24
+    (measured: 5.96e-8, where torch's f32 ``pow`` gave 3.05e-5), and are
+    equal once rounded to bf16."""
+    want = np.asarray(jL.sinusoidal_pos(1500, d, jnp.dtype(dtype)),
                       np.float32)
-    got = tL.sinusoidal_pos(1500, 64, tL.torch_dtype(dtype))
-    assert got.dtype == tL.torch_dtype(dtype) and got.shape == (1500, 64)
-    if dtype == "float32":
+    got = tL.sinusoidal_pos(1500, d, tL.torch_dtype(dtype))
+    assert got.dtype == tL.torch_dtype(dtype) and got.shape == (1500, d)
+    if d == 1024:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=0 if dtype == "bfloat16" else 2 ** -24)
+    elif dtype == "float32":
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2.5e-4)
         np.testing.assert_allclose(got[:64].numpy(), want[:64], rtol=0,
                                    atol=1e-6)
     else:
         np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                    atol=2 ** -7)
-    f64 = tL.sinusoidal_pos(1500, 64, torch.float64)
+    f64 = tL.sinusoidal_pos(1500, d, torch.float64)
     assert f64.dtype == torch.float64  # computed wide, not through f32
     np.testing.assert_allclose(
-        f64.numpy(), np.asarray(jL.sinusoidal_pos(1500, 64, jnp.float32)),
+        f64.numpy(), np.asarray(jL.sinusoidal_pos(1500, d, jnp.float32)),
         rtol=0, atol=2.5e-4)
 
 

@@ -77,7 +77,10 @@ def test_import_walk_covers_the_workload_modules():
             "repro_torch.models.model", "repro_torch.train.optimizer",
             "repro_torch.train.data", "repro_torch.train.steps",
             "repro_torch.launch.train", "repro_torch.core.phases",
-            "repro_torch.core.interval"} <= names
+            "repro_torch.core.interval", "repro_torch.examples.quickstart",
+            "repro_torch.examples.incremental", "repro_torch.examples.serve",
+            "repro_torch.examples.branch_explore",
+            "repro_torch.examples.train_resilient"} <= names
 
 
 def _imported_roots(path):

@@ -418,7 +418,7 @@ def test_unported_families_raise():
     for bad in (cfg.replace(block_pattern=("mla",)),
                 cfg.replace(attention="mla", mla=mla)):
         with pytest.raises(NotImplementedError,
-                           match="item 9 has MLA, then the examples"):
+                           match="item 9 has MLA left"):
             tmodel.init_model(bad, generator=gen, device="cpu")
         for fn in (tmodel.count_params, lambda c: tmodel.batch_struct(c, SM),
                    tmodel.make_loss_fn, tmodel.make_decode_fn):
