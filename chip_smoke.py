@@ -89,7 +89,7 @@ any failure (the script then exits non-zero):
      {...}`` line);
   7d. the xlstm train path (``xlstm_train_path``): xlstm-1.3b whole (48
      layers, a 22.17 GB train state) through the trainer with a checkpoint
-     every 3 steps, a failure after step 4 and recovery from v3,
+     every 2 steps, a failure after step 3 and recovery from v2,
      ``--capture standalone``; every version read back by a fresh client,
      the recovered and the last state held against a replay without
      checkpoints by per-leaf tables computed on the card; an ``xlstm
@@ -1793,7 +1793,7 @@ def profile_train_steps(torch, seed: int, scratch: Path,
 SCAN_ERR_RATIO = 10.0
 #: the xlstm train path: steps, a checkpoint every XLSTM_EVERY steps, the
 #: simulated failure after step XLSTM_FAIL (recovery from the version before)
-XLSTM_STEPS, XLSTM_EVERY, XLSTM_FAIL = 6, 3, 4
+XLSTM_STEPS, XLSTM_EVERY, XLSTM_FAIL = 4, 2, 3
 #: ``--capture standalone --keep-versions 1``: ``xlstm_train_path`` says why
 XLSTM_PATH = {"arch": "xlstm-1.3b", "seq_len": 256, "batch": 8,
               "steps": XLSTM_STEPS, "every": XLSTM_EVERY, "fail": XLSTM_FAIL,
