@@ -138,6 +138,13 @@ any failure (the script then exits non-zero):
      and continues: logits and tokens bit for bit, per-leaf tables equal;
      app blocking, decode ms before, during and after the drain, drain,
      fresh restore, peak device memory;
+  7k. ``minicpm3 mla serve clone``: the same clone of minicpm3-4b's MLA
+     form whole (62 layers, 4,262,025,728 parameters), its caches the
+     latent and the shared rotated key (73,138,176 bytes), printed beside
+     the plain-attention form's K/V cache bytes, computed; then
+     ``minicpm3 decode``: ``decode_check`` of both forms (the registered
+     plain attention and MLA) at full width cut to 4 layers (f32 within
+     ``STUB_F32_TOL``, float64 within ``F64_TOL``);
   8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
      checksum rows, the train path's one-rank shard and the xlstm and
@@ -155,7 +162,9 @@ any failure (the script then exits non-zero):
      ``torch.index_select`` on that index and the whole wrapper (host
      checks and the index copy included); and the host-to-device copy of a
      shard-sized buffer next to the checksum kernel that digests it;
-  9. a ``{"kernels": [...]}`` line: each kernel's launches on its path and
+  9. a ``phase seconds {...}`` line (for each JSON line above, the seconds
+     since the line before it; and the kernel checks' seconds), then a
+     ``{"kernels": [...]}`` line: each kernel's launches on its path and
      on every path (counts set to 0 just before each path), times, bound
      and error;
  10. as the last line, ``{"ok": true, "device": {...}}``.
@@ -2740,21 +2749,41 @@ def examples_path(torch, scratch: Path, counters: dict) -> dict:
     return out
 
 
-#: the live clone at full width: rows, prompt, context, greedy steps
+#: the live clones at full width: rows, prompt, context, greedy steps
 #: compared, the step after which the clone is taken, steps timed after
-#: the drain
+#: the drain.  phi3-mini-3.8b (per-head K/V caches) and minicpm3-4b's MLA
+#: form (a latent cache) with their parameter counts
 CLONE_ARCH = "phi3-mini-3.8b"
 CLONE_PARAMS = 3_822_259_200
+MLA_ARCH, MLA_FORM = "minicpm3-4b", {"block_pattern": ("mla",)}
+MLA_PARAMS = 4_262_025_728
+#: 62 layers x 4 rows x 512 slots x (latent 256 + rope 32) x 2 bytes
+MLA_CACHE_BYTES = 73_138_176
+#: the minicpm3 decode line: both forms at full width cut to 4 layers
+MINICPM3_DECODE_LAYERS = 4
 CLONE_ROWS, CLONE_PROMPT, CLONE_CONTEXT = 4, 256, 512
 CLONE_STEPS, CLONE_AT, CLONE_AFTER = 32, 12, 8
 
 
-def serve_clone(torch, scratch: Path, seed: int) -> dict:
-    """DeepClone at full width: phi3-mini-3.8b whole (32 layers, d_model
-    3072, 32 heads, d_ff 8192, vocab 32,064; 3,822,259,200 parameters, 15.3
-    GB in f32) from a seeded initialisation on the card serves
-    ``CLONE_ROWS`` rows: a prefill of ``CLONE_PROMPT`` tokens into caches
-    of ``CLONE_CONTEXT``, then ``CLONE_STEPS`` greedy decode steps in bf16.
+def kv_cache_bytes(cfg, rows: int, context: int) -> int:
+    """The bytes of the per-head K/V caches of ``cfg``'s plain-attention
+    form for ``rows`` and ``context`` in the compute dtype, computed (the
+    MLA form's latent cache is measured beside it)."""
+    from repro_torch.models.layers import cdt
+
+    return cfg.num_layers * 2 * rows * context * cfg.num_kv_heads * \
+        cfg.head_dim * cdt(cfg).itemsize
+
+
+def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
+                ) -> dict:
+    """DeepClone at full width: ``cfg`` whole (phi3-mini-3.8b: 32 layers,
+    d_model 3072, 32 heads, d_ff 8192, vocab 32,064, 3,822,259,200
+    parameters, 15.3 GB in f32; minicpm3-4b's MLA form: 62 layers, d_model
+    2560, 40 heads, d_ff 6400, vocab 73,448, 4,262,025,728 parameters, 17.05
+    GB) from a seeded initialisation on the card serves ``CLONE_ROWS``
+    rows: a prefill of ``CLONE_PROMPT`` tokens into caches of
+    ``CLONE_CONTEXT``, then ``CLONE_STEPS`` greedy decode steps in bf16.
     After step ``CLONE_AT`` an async serialize/local/flush checkpoint takes
     the serving state (params, caches, token, position) while decoding
     goes on, and goes on past the compared steps until the clone has
@@ -2765,22 +2794,21 @@ def serve_clone(torch, scratch: Path, seed: int) -> dict:
     and caches' per-leaf Fletcher tables the live ones'."""
     import gc
 
-    from repro_torch.configs import get_config
     from repro_torch.core import ModuleSpec, PipelineSpec, VelocClient
     from repro_torch.core.capture import leaves_with_paths
     from repro_torch.models.model import (cache_init, count_params,
                                           init_model, make_decode_fn,
                                           make_prefill_fn)
 
-    cfg = get_config(CLONE_ARCH)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_model(cfg, generator=gen, device="cuda")
     n = sum(t.numel() for _, t in leaves_with_paths(params))
-    if not n == count_params(cfg)["total"] == CLONE_PARAMS:
-        raise AssertionError(f"{CLONE_ARCH}: {n} parameters")
+    if not n == count_params(cfg)["total"] == want_params:
+        raise AssertionError(f"{cfg.name} {cfg.block_pattern}: {n} "
+                             f"parameters")
     prompt = torch.randint(0, cfg.vocab_size, (CLONE_ROWS, CLONE_PROMPT),
                            generator=gen, device="cuda", dtype=torch.int32)
     spec = PipelineSpec(name="serve-clone", mode="async", modules=[
@@ -2854,20 +2882,22 @@ def serve_clone(torch, scratch: Path, seed: int) -> dict:
         restore_s = time.perf_counter() - t0
         fresh.shutdown()
         if v != 1:
-            raise AssertionError(f"serve clone: the fresh client restored "
-                                 f"v{v}: {fresh.restart_diagnostics}")
+            raise AssertionError(f"{cfg.name} serve clone: the fresh client "
+                                 f"restored v{v}: "
+                                 f"{fresh.restart_diagnostics}")
         if any(t.device.type != "cuda" for _, t in leaves_with_paths(snap)):
-            raise AssertionError("serve clone: a restored leaf is not on "
-                                 "the card")
+            raise AssertionError(f"{cfg.name} serve clone: a restored leaf "
+                                 f"is not on the card")
         _assert_tables_equal(state_tables(torch, snap["params"]),
                              state_tables(torch, clone["params"]),
-                             "serve clone params")
+                             f"{cfg.name} serve clone params")
         _assert_tables_equal(state_tables(torch, snap["cache"]),
                              state_tables(torch, clone["cache"]),
-                             "serve clone caches")
+                             f"{cfg.name} serve clone caches")
         if not (torch.equal(snap["tok"], clone["tok"])
                 and int(snap["pos"]) == int(clone["pos"])):
-            raise AssertionError("serve clone: token or position differs")
+            raise AssertionError(f"{cfg.name} serve clone: token or "
+                                 f"position differs")
         with torch.no_grad():
             r_cache, r_tok, r_rows, r_toks = snap["cache"], snap["tok"], \
                 [], []
@@ -2882,7 +2912,8 @@ def serve_clone(torch, scratch: Path, seed: int) -> dict:
     live_rows = torch.stack(rows[CLONE_AT:], 1)
     live_toks = torch.cat(toks[CLONE_AT + 1:], 1)
     got_rows, got_toks = torch.stack(r_rows, 1), torch.cat(r_toks, 1)
-    out = {"config": {"arch": CLONE_ARCH, "layers": cfg.num_layers,
+    out = {"config": {"arch": cfg.name, "blocks": cfg.block_pattern,
+                      "layers": cfg.num_layers,
                       "d_model": cfg.d_model, "params": n,
                       "rows": CLONE_ROWS, "prompt": CLONE_PROMPT,
                       "context": CLONE_CONTEXT, "steps": CLONE_STEPS,
@@ -2909,8 +2940,33 @@ def serve_clone(torch, scratch: Path, seed: int) -> dict:
            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
            "host": _host_memory()}
     if not (out["logits_equal"] and out["tokens_equal"] and out["finite"]):
-        raise AssertionError(f"serve clone: the replica differs from the "
-                             f"primary: {out}")
+        raise AssertionError(f"{cfg.name} serve clone: the replica differs "
+                             f"from the primary: {out}")
+    return out
+
+
+def minicpm3_decode(torch, seed: int) -> dict:
+    """``decode_check`` of minicpm3-4b at full width (d_model 2560, 40
+    heads, vocab 73,448) cut to ``MINICPM3_DECODE_LAYERS`` layers, in the
+    registered plain-attention form and the MLA form, each from a seeded
+    initialisation on the card: f32 within ``STUB_F32_TOL`` and float64
+    within ``F64_TOL`` of the forward pass."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+
+    out = {}
+    for form, over in (("attn", {}), ("mla", MLA_FORM)):
+        cfg = get_config(MLA_ARCH).replace(
+            num_layers=MINICPM3_DECODE_LAYERS, **over)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_model(cfg, generator=gen, device="cuda")
+        out[form] = decode_check(torch, cfg, params, seed + 1,
+                                 f32_tol=STUB_F32_TOL)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3065,6 +3121,15 @@ def main(argv=None) -> int:
                                      f"{name}")
         return out, launches
 
+    phase_s, last = {}, [time.perf_counter()]
+
+    def line(name, out):
+        """Print a phase's JSON line; its seconds are those since the line
+        before."""
+        now = time.perf_counter()
+        phase_s[name], last[0] = now - last[0], now
+        print(f"{name} {json.dumps(out)}")
+
     card = _card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3100,12 +3165,12 @@ def main(argv=None) -> int:
         lambda: host_delta_path(torch, list(ranks[0].items()), ranks[0],
                                 scratch / "host_delta", args.seed + 3))
     shutil.rmtree(scratch / "host_delta", ignore_errors=True)
-    print(f"delta path {json.dumps(delta)}")
+    line("delta path", delta)
     q8, by_path["q8"] = run_path(
         "q8 path", ("quantize", "dequantize", "checksum", "xor_reduce"),
         lambda: q8_path(torch, ranks, load, scratch / "q8"))
     shutil.rmtree(scratch / "q8", ignore_errors=True)
-    print(f"q8 path {json.dumps(q8)}")
+    line("q8 path", q8)
     ring, by_path["ring"] = run_path(
         "ring path", ("xor_pair",), lambda: ring_path(torch, leaves))
     recovery, by_path["recovery"] = run_path(
@@ -3114,7 +3179,7 @@ def main(argv=None) -> int:
                               args.seed + 4))
     shutil.rmtree(scratch / "recovery", ignore_errors=True)
     recovery["launches"] = by_path["recovery"]
-    print(f"recovery path {json.dumps(recovery)}")
+    line("recovery path", recovery)
     big_n = max(t.numel() for _, t in leaves)
     del leaves, ranks
     train, by_path["train"] = run_path(
@@ -3123,39 +3188,39 @@ def main(argv=None) -> int:
     shutil.rmtree(scratch / "train", ignore_errors=True)
     train["launches"] = by_path["train"]
     gru = train.pop("gru")
-    print(f"train path {json.dumps(train)}")
-    print(f"gru gate {json.dumps(gru)}")
+    line("train path", train)
+    line("gru gate", gru)
     interval = interval_check(torch, args.seed)
-    print(f"interval optimizer {json.dumps(interval)}")
+    line("interval optimizer", interval)
     scans = recurrent_scans(torch, args.seed + 7)
-    print(f"recurrent scans {json.dumps(scans)}")
+    line("recurrent scans", scans)
     xlstm, xdecode = xlstm_train_path(torch, scratch / "xlstm",
                                       args.seed + 8, run_path)
     shutil.rmtree(scratch / "xlstm", ignore_errors=True)
     by_path["xlstm"] = xlstm["launches"]
-    print(f"xlstm train path {json.dumps(xlstm)}")
-    print(f"xlstm decode {json.dumps(xdecode)}")
+    line("xlstm train path", xlstm)
+    line("xlstm decode", xdecode)
     rgemma = recurrentgemma_step(torch, args.seed + 9)
-    print(f"recurrentgemma step {json.dumps(rgemma)}")
+    line("recurrentgemma step", rgemma)
     whisper, restored, live = whisper_train_path(
         torch, scratch / "whisper", args.seed + 10, run_path)
     shutil.rmtree(scratch / "whisper", ignore_errors=True)
     by_path["whisper"] = whisper["launches"]
-    print(f"whisper train path {json.dumps(whisper)}")
+    line("whisper train path", whisper)
     serve = whisper_serve(torch, restored, live, args.seed + 11)
     serve["sinusoidal_pos"] = sinusoidal_gap(torch)
-    print(f"whisper serve from restore {json.dumps(serve)}")
+    line("whisper serve from restore", serve)
     del live
     from repro_torch.configs import get_config
 
     wdecode = decode_check(torch, get_config("whisper-medium"), restored,
                            args.seed + 12, prompt=WHISPER_DECODE_PROMPT,
                            f64_layers=F64_LAYERS, f32_tol=STUB_F32_TOL)
-    print(f"whisper decode {json.dumps(wdecode)}")
+    line("whisper decode", wdecode)
     del restored
     torch.cuda.empty_cache()
     vision = vision_serve(torch, args.seed + 13)
-    print(f"vision serve {json.dumps(vision)}")
+    line("vision serve", vision)
     for what, d in (("xlstm", xdecode), ("recurrentgemma", rgemma["decode"]),
                     ("whisper", wdecode), ("vision", vision["decode"])):
         if not d["ok"]:
@@ -3165,13 +3230,34 @@ def main(argv=None) -> int:
         "examples", ("checksum", "blockhash"),
         lambda: examples_path(torch, scratch / "examples", counters))
     shutil.rmtree(scratch / "examples", ignore_errors=True)
-    print(f"examples {json.dumps(examples)}")
+    line("examples", examples)
     clone, by_path["serve_clone"] = run_path(
         "serve clone", ("checksum",),
-        lambda: serve_clone(torch, scratch / "serve_clone", args.seed + 14))
+        lambda: serve_clone(torch, scratch / "serve_clone", args.seed + 14,
+                            get_config(CLONE_ARCH), CLONE_PARAMS))
     shutil.rmtree(scratch / "serve_clone", ignore_errors=True)
     clone["launches"] = by_path["serve_clone"]
-    print(f"serve clone {json.dumps(clone)}")
+    line("serve clone", clone)
+    mla_cfg = get_config(MLA_ARCH).replace(**MLA_FORM)
+    mclone, by_path["minicpm3"] = run_path(
+        "minicpm3 mla serve clone", ("checksum",),
+        lambda: serve_clone(torch, scratch / "minicpm3", args.seed + 15,
+                            mla_cfg, MLA_PARAMS))
+    shutil.rmtree(scratch / "minicpm3", ignore_errors=True)
+    mclone["launches"] = by_path["minicpm3"]
+    if mclone["config"]["cache_bytes"] != MLA_CACHE_BYTES:
+        raise AssertionError(f"minicpm3 mla: latent caches of "
+                             f"{mclone['config']['cache_bytes']} bytes")
+    # the registered plain-attention form's K/V caches, computed, not run
+    mclone["attn_form_cache_bytes"] = kv_cache_bytes(
+        get_config(MLA_ARCH), CLONE_ROWS, CLONE_CONTEXT)
+    line("minicpm3 mla serve clone", mclone)
+    mdecode = minicpm3_decode(torch, args.seed + 16)
+    line("minicpm3 decode", mdecode)
+    for form, d in mdecode.items():
+        if not d["ok"]:
+            raise AssertionError(f"minicpm3 {form} decode differs from the "
+                                 f"forward pass beyond its tolerance: {d}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],
@@ -3214,6 +3300,8 @@ def main(argv=None) -> int:
             "bound_by": "bytes", "library_ms": s.get("library_ms"),
             "wrapper_ms": s.get("wrapper_ms"), "shape": s["shape"],
             "xlstm": s.get("xlstm"), "whisper": s.get("whisper")})
+    line("phase seconds", dict(phase_s, kernel_checks=time.perf_counter()
+                               - last[0]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

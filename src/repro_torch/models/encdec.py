@@ -162,7 +162,7 @@ def encdec_prefill(params, cfg, batch, cache_len=None):
         x, xn, ek, ev = _dec_block(bp, cfg, x, enc_out)
         k = torch.einsum("btd,dgk->btgk", xn.to(ct), bp["self"]["wk"].to(ct))
         v = torch.einsum("btd,dgk->btgk", xn.to(ct), bp["self"]["wv"].to(ct))
-        c = _attn_cache(cfg, "attn", k, v, cache_len)
+        c = _attn_cache(cfg, "attn", {"k": k, "v": v}, cache_len)
         caches.append({"k": c["k"], "v": c["v"], "cross_k": ek,
                        "cross_v": ev})
     return _dec_logits(params, cfg, x[:, -1:])[:, 0], _stack(caches)

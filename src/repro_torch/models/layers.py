@@ -1,6 +1,7 @@
 """Dense transformer layers: RMSNorm, RoPE, sinusoidal positions, the MLP
 variants, full, GQA and local (windowed) self-attention with its one-token
-decode against a cache, and the encoder-decoder's cross-attention.
+decode against a cache, multi-head latent attention (MLA) with its decode
+against a latent cache, and the encoder-decoder's cross-attention.
 
 Parameters are plain nested dicts of tensors with the JAX package's names,
 shapes and dtypes (``repro.models.layers``).  Every matmul input is cast to
@@ -60,12 +61,20 @@ def rms_norm(x, scale, eps=1e-6):
     return (x * scale.to(x.dtype)).to(dt)
 
 
+def rope_factor(half, theta, dtype, device=None):
+    """The rotary frequencies ``theta ** (-i / half)``, i < half, in
+    ``dtype``.  Torch's f32 ``pow`` gives XLA's bits at half = 16 (MLA's
+    32-wide rope) but misses by an ulp at some entries of half = 32 and 64
+    (held in ``tests/test_torch_mla.py``)."""
+    freq = torch.arange(half, dtype=dtype, device=device) / half
+    return theta ** (-freq)
+
+
 def rope(x, positions, theta=10_000.0):
     """Rotary embedding.  x: (..., T, H, hd); positions: (..., T)."""
     half = x.shape[-1] // 2
     wd = torch.promote_types(x.dtype, torch.float32)
-    freq = torch.arange(half, dtype=wd, device=x.device) / half
-    inv = theta ** (-freq)
+    inv = rope_factor(half, theta, wd, x.device)
     ang = positions[..., None].to(wd) * inv  # (..., T, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -126,10 +135,12 @@ def apply_mlp(p, cfg, x):
 ATTN_CHUNK = 1024  # q-chunk size used once Tq exceeds this (bounds score memory)
 
 
-def _attn_block(q, k, v, *, causal, window, q_start):
-    """q: (B,Tq,H,hd) k/v: (B,Tk,H,hd) -> (B,Tq,H,hd).  Mask rows are the
-    global query positions q_start..q_start+Tq-1; keys are positions
-    0..Tk-1."""
+def _attn_block(q, k, v, *, causal, window, q_start, k_len_valid=None):
+    """q: (B,Tq,H,hd) k: (B,Tk,H,hd) v: (B,Tk,H,hv) -> (B,Tq,H,hv).  Mask
+    rows are the global query positions q_start..q_start+Tq-1; keys are
+    positions 0..Tk-1, of which only the first ``k_len_valid`` (an int or
+    a 0-d tensor) are real when it is given.  Scores are scaled by
+    1/sqrt(hd), q's width."""
     Tq, hd, Tk = q.shape[1], q.shape[3], k.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
     scores = wide(scores)
@@ -140,6 +151,8 @@ def _attn_block(q, k, v, *, causal, window, q_start):
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
+    if k_len_valid is not None:
+        mask &= kpos < k_len_valid
     scores = torch.where(mask, scores, -1e30)
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)
@@ -247,6 +260,100 @@ def attn_decode(p, cfg, x, cache_k, cache_v, pos, *, window=0,
     o = o.reshape(B, 1, H, hd)
     out = torch.einsum("bqhk,hkd->bqd", o, p["wo"].to(ct))
     return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek style)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg, device):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dt = pdt(cfg)
+    return {
+        "wq_a": he(gen, (d, m.q_lora_rank), dt, device),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dt, device=device),
+        "wq_b": he(gen, (m.q_lora_rank, H, qk), dt, device,
+                   fan_in=m.q_lora_rank),
+        "wkv_a": he(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dt,
+                    device),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dt, device=device),
+        "wkv_b": he(gen, (m.kv_lora_rank, H,
+                          m.qk_nope_head_dim + m.v_head_dim), dt, device,
+                    fan_in=m.kv_lora_rank),
+        "wo": he(gen, (H, m.v_head_dim, d), dt, device,
+                 fan_in=H * m.v_head_dim)}
+
+
+def _mla_qkv(p, cfg, x, positions):
+    """x: (B,T,d) in the compute dtype -> q_nope (B,T,H,nope), q_rope
+    (B,T,H,rope), the RMS-normed latent (B,T,r) and k_rope (B,T,1,rope),
+    one rotated key shared by every head."""
+    ct = cdt(cfg)
+    m = cfg.mla
+    cq = rms_norm(x @ p["wq_a"].to(ct), p["q_norm"])
+    q = torch.einsum("btr,rhk->bthk", cq, p["wq_b"].to(ct))
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    ckv = x @ p["wkv_a"].to(ct)
+    latent, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+    latent = rms_norm(latent, p["kv_norm"])
+    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, latent, k_rope
+
+
+def _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, *, causal,
+                q_start=0, k_len_valid=None):
+    """Attention of the queries against keys and values expanded from the
+    latent by ``wkv_b`` (every key each call, as the JAX package does):
+    q and k are nope + rope wide, v ``v_head_dim``."""
+    ct = cdt(cfg)
+    m = cfg.mla
+    kv = torch.einsum("btr,rhk->bthk", latent, p["wkv_b"].to(ct))
+    k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    k_rope_b = k_rope.expand(*k_rope.shape[:2], cfg.num_heads,
+                             m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    Tq = q.shape[1]
+    if Tq > ATTN_CHUNK and Tq % ATTN_CHUNK == 0 and k_len_valid is None:
+        o = sdpa(q, k, v, causal=causal, q_start=q_start)
+    else:
+        o = _attn_block(q, k, v, causal=causal, window=0, q_start=q_start,
+                        k_len_valid=k_len_valid)
+    return torch.einsum("bthk,hkd->btd", o, p["wo"].to(ct))
+
+
+def apply_mla(p, cfg, x, positions):
+    """Training / prefill causal MLA."""
+    x = x.to(cdt(cfg))
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, cfg, x, positions)
+    return _mla_attend(p, cfg, q_nope, q_rope, latent, k_rope, causal=True)
+
+
+def mla_decode(p, cfg, x, cache_latent, cache_krope, pos):
+    """One-token decode.  x: (B,1,d); cache_latent: (B,S,r); cache_krope:
+    (B,S,rope); pos: the token's position, the same for every row (an int
+    or a 0-d integer tensor), written to slot ``pos`` of both caches.
+
+    Returns (out, new_latent, new_krope); the caches are new tensors."""
+    x = x.to(cdt(cfg))
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(
+        p, cfg, x, pos.reshape(1, 1).expand(B, 1))
+    smask = (torch.arange(cache_latent.shape[1], device=x.device)
+             == pos)[None, :, None]
+    cache_latent = torch.where(smask, latent.to(cache_latent.dtype),
+                               cache_latent)
+    cache_krope = torch.where(smask, k_rope[:, :, 0, :].to(cache_krope.dtype),
+                              cache_krope)
+    out = _mla_attend(p, cfg, q_nope, q_rope, cache_latent.to(x.dtype),
+                      cache_krope[:, :, None, :].to(x.dtype), causal=False,
+                      k_len_valid=pos + 1)
+    return out, cache_latent, cache_krope
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ encoder-decoder).
   count_params        exact parameter counts (total / active / expert)
   model_flops         6*N*D for training, 2*N*D otherwise
 
-MLA and MoE models are not ported yet (ROADMAP.md queue 1, item 9, and its
-MoE note): every entry point raises ``NotImplementedError`` for them.
+MoE models are not ported yet (ROADMAP.md queue 1, item 9's MoE note):
+every entry point raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 

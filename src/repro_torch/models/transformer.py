@@ -8,14 +8,15 @@ the JAX package's ``jax.lax.scan`` over groups lays them out, and the
 group recomputed in the backward pass when ``cfg.remat``
 (``torch.utils.checkpoint``, as ``jax.checkpoint``).
 
-Ported block kinds: ``"attn"`` and ``"local_attn"`` with a dense MLP,
-xLSTM's ``"mlstm"`` and ``"slstm"`` (self-contained blocks) and RG-LRU's
-``"rglru"`` (the recurrent mix, then a dense MLP), each with its prefill
-(forward plus the decode cache) and one-token decode.  ``extra_embeds``
-(the vision frontend stub's patch embeddings) are prepended to the token
-embeddings.  The sharding constraints of the JAX package (``_constrain``,
-``gather_fsdp``) have nothing to do on one card.  MLA and MoE blocks wait
-(ROADMAP.md queue 1, item 9, and its MoE note).
+Ported block kinds: ``"attn"``, ``"local_attn"`` and ``"mla"`` (latent
+attention, its cache the latent and the shared rotated key) with a dense
+MLP, xLSTM's ``"mlstm"`` and ``"slstm"`` (self-contained blocks) and
+RG-LRU's ``"rglru"`` (the recurrent mix, then a dense MLP), each with its
+prefill (forward plus the decode cache) and one-token decode.
+``extra_embeds`` (the vision frontend stub's patch embeddings) are
+prepended to the token embeddings.  The sharding constraints of the JAX
+package (``_constrain``, ``gather_fsdp``) have nothing to do on one card.
+MoE blocks wait (ROADMAP.md queue 1, item 9's MoE note).
 """
 from __future__ import annotations
 
@@ -25,16 +26,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
-_PORTED_KINDS = ("attn", "local_attn", "mlstm", "slstm", "rglru")
+_PORTED_KINDS = ("attn", "local_attn", "mla", "mlstm", "slstm", "rglru")
 
 
 def _check_kind(cfg, kind: str):
-    if kind not in _PORTED_KINDS or cfg.attention == "mla" or \
-            cfg.mla is not None:
-        raise NotImplementedError(
-            f"block kind {kind!r} (attention {cfg.attention!r}) is not "
-            f"ported yet: ROADMAP.md queue 1, item 9 has MLA left (item "
-            f"9b)")
+    # cfg.attention selects nothing in the JAX package: the kind does, so
+    # minicpm3-4b's registered ("attn",) pattern builds plain attention
+    if kind not in _PORTED_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if kind == "mla" and cfg.mla is None:
+        raise ValueError("block kind 'mla' needs cfg.mla")
     if cfg.moe is not None:
         raise NotImplementedError(
             "MoE blocks are not ported yet: ROADMAP.md queue 1, item 9's "
@@ -43,7 +44,7 @@ def _check_kind(cfg, kind: str):
 
 def check_config(cfg):
     """Raise ``NotImplementedError`` for a configuration whose blocks the
-    port does not have yet (MLA, MoE)."""
+    port does not have yet (MoE)."""
     for kind in cfg.block_pattern:
         _check_kind(cfg, kind)
 
@@ -64,8 +65,10 @@ def init_block(gen, cfg, kind: str, device):
     if kind == "rglru":
         return {"mix": R.init_rglru_block(gen, cfg, device), "norm2": ones,
                 "ffn": L.init_mlp(gen, cfg, device)}
-    return {"norm1": ones, "mix": L.init_attn(gen, cfg, device),
-            "norm2": ones.clone(), "ffn": L.init_mlp(gen, cfg, device)}
+    mix = L.init_mla(gen, cfg, device) if kind == "mla" else \
+        L.init_attn(gen, cfg, device)
+    return {"norm1": ones, "mix": mix, "norm2": ones.clone(),
+            "ffn": L.init_mlp(gen, cfg, device)}
 
 
 def _ffn(p, cfg, x):
@@ -79,10 +82,12 @@ def apply_block(p, cfg, kind: str, x, positions):
         return R.apply_slstm_block(p, cfg, x)
     if kind == "rglru":
         return _ffn(p, cfg, R.apply_rglru_block(p["mix"], cfg, x))
+    xn = L.rms_norm(x, p["norm1"])
+    if kind == "mla":
+        return _ffn(p, cfg, x + L.apply_mla(p["mix"], cfg, xn, positions))
     window = cfg.window if kind == "local_attn" else 0
-    x = x + L.apply_attn(p["mix"], cfg, L.rms_norm(x, p["norm1"]), positions,
-                         window=window)
-    return _ffn(p, cfg, x)
+    return _ffn(p, cfg, x + L.apply_attn(p["mix"], cfg, xn, positions,
+                                         window=window))
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +98,8 @@ def apply_block(p, cfg, kind: str, x, positions):
 def init_block_cache(cfg, kind: str, B: int, S: int, device):
     """The decode cache of one block for ``B`` rows and a context of ``S``
     tokens: k/v for attention (a ring of min(window, S) slots for local
-    attention), the carry for the recurrent kinds."""
+    attention), the latent (B, S, r) and rotated key (B, S, rope) for MLA,
+    the carry for the recurrent kinds."""
     _check_kind(cfg, kind)
     if kind == "mlstm":
         return R.mlstm_carry_init(cfg, B, device)
@@ -101,33 +107,41 @@ def init_block_cache(cfg, kind: str, B: int, S: int, device):
         return R.slstm_carry_init(cfg, B, device)
     if kind == "rglru":
         return R.rglru_carry_init(cfg, B, device)
+    if kind == "mla":
+        m = cfg.mla
+        return {"latent": torch.zeros((B, S, m.kv_lora_rank),
+                                      dtype=L.cdt(cfg), device=device),
+                "k_rope": torch.zeros((B, S, m.qk_rope_head_dim),
+                                      dtype=L.cdt(cfg), device=device)}
     W = min(cfg.window, S) if kind == "local_attn" else S
     shape = (B, W, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=L.cdt(cfg), device=device),
             "v": torch.zeros(shape, dtype=L.cdt(cfg), device=device)}
 
 
-def _attn_cache(cfg, kind, k, v, cache_len):
-    """Prefill's k/v (B,T,K,hd) as a decode cache.  Without ``cache_len``
-    the JAX package's layout: T slots, the last min(window, T) for local
-    attention.  With it, the cache of ``init_block_cache`` for that context,
-    position p in slot p (p % window for local attention), which decode
-    steps after the prompt go on filling."""
-    T = k.shape[1]
+def _attn_cache(cfg, kind, entries: dict, cache_len):
+    """Prefill's per-token cache entries (B, T, ...) as a decode cache:
+    ``{"k", "v"}`` for attention, ``{"latent", "k_rope"}`` for MLA.
+    Without ``cache_len`` the JAX package's layout: T slots, the last
+    min(window, T) for local attention.  With it, the cache of
+    ``init_block_cache`` for that context, position p in slot p (p %
+    window for local attention), which decode steps after the prompt go
+    on filling."""
+    e0 = next(iter(entries.values()))
+    B, T = e0.shape[:2]
     if cache_len is None:
         if kind == "local_attn":
             W = min(cfg.window, T)
-            k, v = k[:, -W:], v[:, -W:]
-        return {"k": k, "v": v}
+            entries = {n: e[:, -W:] for n, e in entries.items()}
+        return entries
     if cache_len < T:
         raise ValueError(f"cache of {cache_len} tokens for a prompt of {T}")
-    cache = init_block_cache(cfg, kind, k.shape[0], cache_len, k.device)
-    W = cache["k"].shape[1]
-    keep = min(W, T)
-    pos = torch.arange(T - keep, T, device=k.device)
-    slots = pos % cfg.window if kind == "local_attn" else pos
-    cache["k"][:, slots] = k[:, -keep:]
-    cache["v"][:, slots] = v[:, -keep:]
+    cache = init_block_cache(cfg, kind, B, cache_len, e0.device)
+    for n, e in entries.items():
+        keep = min(cache[n].shape[1], T)
+        pos = torch.arange(T - keep, T, device=e.device)
+        slots = pos % cfg.window if kind == "local_attn" else pos
+        cache[n][:, slots] = e[:, -keep:]
     return cache
 
 
@@ -141,14 +155,20 @@ def prefill_block(p, cfg, kind: str, x, positions, cache_len=None):
     if kind == "rglru":
         x, carry = R.apply_rglru_block(p["mix"], cfg, x, return_carry=True)
         return _ffn(p, cfg, x), carry
-    # attention: recompute k/v (cheap beside attention) for the cache
+    # attention: recompute the cache entries (cheap beside attention)
     xn = L.rms_norm(x, p["norm1"])
-    window = cfg.window if kind == "local_attn" else 0
-    mix = L.apply_attn(p["mix"], cfg, xn, positions, window=window)
-    k = torch.einsum("btd,dgk->btgk", xn.to(ct), p["mix"]["wk"].to(ct))
-    v = torch.einsum("btd,dgk->btgk", xn.to(ct), p["mix"]["wv"].to(ct))
-    k = L.rope(k, positions, cfg.rope_theta)
-    cache = _attn_cache(cfg, kind, k.to(ct), v.to(ct), cache_len)
+    if kind == "mla":
+        mix = L.apply_mla(p["mix"], cfg, xn, positions)
+        _, _, latent, k_rope = L._mla_qkv(p["mix"], cfg, xn.to(ct), positions)
+        entries = {"latent": latent.to(ct), "k_rope": k_rope[:, :, 0].to(ct)}
+    else:
+        window = cfg.window if kind == "local_attn" else 0
+        mix = L.apply_attn(p["mix"], cfg, xn, positions, window=window)
+        k = torch.einsum("btd,dgk->btgk", xn.to(ct), p["mix"]["wk"].to(ct))
+        v = torch.einsum("btd,dgk->btgk", xn.to(ct), p["mix"]["wv"].to(ct))
+        k = L.rope(k, positions, cfg.rope_theta)
+        entries = {"k": k.to(ct), "v": v.to(ct)}
+    cache = _attn_cache(cfg, kind, entries, cache_len)
     return _ffn(p, cfg, x + mix), cache
 
 
@@ -161,9 +181,14 @@ def decode_block(p, cfg, kind: str, x, cache, pos):
     if kind == "rglru":
         x, cache = R.rglru_block_step(p["mix"], cfg, x, cache)
         return _ffn(p, cfg, x), cache
+    xn = L.rms_norm(x, p["norm1"])
+    if kind == "mla":
+        mix, lat, kr = L.mla_decode(p["mix"], cfg, xn, cache["latent"],
+                                    cache["k_rope"], pos)
+        return _ffn(p, cfg, x + mix), {"latent": lat, "k_rope": kr}
     window = cfg.window if kind == "local_attn" else 0
-    mix, ck, cv = L.attn_decode(p["mix"], cfg, L.rms_norm(x, p["norm1"]),
-                                cache["k"], cache["v"], pos, window=window)
+    mix, ck, cv = L.attn_decode(p["mix"], cfg, xn, cache["k"], cache["v"],
+                                pos, window=window)
     return _ffn(p, cfg, x + mix), {"k": ck, "v": cv}
 
 

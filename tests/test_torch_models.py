@@ -25,8 +25,12 @@ The vision frontend stub (phi-3-vision-4.2b) is held at the dense
 tolerances above, its patch embeddings prepended: the forward, the loss
 over the text positions and every gradient leaf in f32, the bf16 loss, and
 prefill.  The encoder-decoder has its own file (``test_torch_encdec``).
-MLA and MoE stay refused: ``get_config`` raises ``KeyError`` for their
-archs, and every entry point ``NotImplementedError`` for such a config."""
+minicpm3-4b joins the dense family in the form the JAX package builds
+(plain attention: ``cfg.attention`` selects nothing there) and, as the
+``"mla"`` block pattern, at the dense tolerances above; its MLA layers,
+prefill and decode are held in ``test_torch_mla``.  MoE stays refused:
+``get_config`` raises ``KeyError`` for its archs, and every entry point
+``NotImplementedError`` for such a config."""
 import dataclasses
 
 import jax
@@ -53,7 +57,8 @@ from repro_torch.train import data as tdata
 from repro_torch.train import optimizer as topt
 from repro_torch.train import steps as tsteps
 
-DENSE = ["veloc-demo-100m", "minitron-8b", "yi-9b", "phi3-mini-3.8b"]
+DENSE = ["veloc-demo-100m", "minitron-8b", "yi-9b", "phi3-mini-3.8b",
+         "minicpm3-4b"]
 RECURRENT = ["xlstm-1.3b", "recurrentgemma-2b"]
 STUBS = ["whisper-medium", "phi-3-vision-4.2b"]  # frontend-stub families
 SM = tbase.ShapeCfg("smoke", 32, 2, "train")
@@ -64,6 +69,15 @@ VARIANTS = {
     "minitron-relu2-gqa": ("minitron-8b", {}),
     "yi-gqa": ("yi-9b", {}),
     "phi3": ("phi3-mini-3.8b", {}),
+    # attention="mla" with the registered ("attn",) pattern: plain
+    # attention, as the JAX package builds it
+    "minicpm3": ("minicpm3-4b", {}),
+    "minicpm3-mla": ("minicpm3-4b", dict(block_pattern=("mla",))),
+    # MLA then attention in one group, a remainder MLA layer, remat over
+    # the group loop, and a padded vocab
+    "mla-attn-rem-remat-padded": ("minicpm3-4b", dict(
+        block_pattern=("mla", "attn"), num_layers=3, remat=True,
+        vocab_size=500)),
     # a local-attention pattern of two with a remainder layer, remat over
     # the group loop, and a padded vocab (masked to -1e30)
     "local-rem-remat-padded": ("veloc-demo-100m", dict(
@@ -391,7 +405,7 @@ def test_param_counts_match_published():
     expect = {"yi-9b": (8.8e9, 0.1), "phi3-mini-3.8b": (3.8e9, 0.1),
               "minitron-8b": (7.7e9, 0.15), "veloc-demo-100m": (8.3e7, 0.01),
               "xlstm-1.3b": (1.9e9, 0.5), "recurrentgemma-2b": (3.5e9, 0.5),
-              "whisper-medium": (0.8e9, 0.3)}
+              "whisper-medium": (0.8e9, 0.3), "minicpm3-4b": (5.0e9, 0.3)}
     for arch, (want, tol) in expect.items():
         got = tbase.get_config(arch).param_counts()["total"]
         assert abs(got - want) / want < tol, (arch, got, want)
@@ -408,38 +422,46 @@ def test_registry_is_the_dense_family():
                 dataclasses.asdict(getattr(jbase, get)(arch))
 
 
+@pytest.mark.parametrize("form,total", [({}, 5_049_213_440),
+                                        ({"block_pattern": ("mla",)},
+                                         4_262_025_728)])
+def test_minicpm3_counts_at_full_width(form, total):
+    """minicpm3-4b's parameters, laid out on the meta device, as the JAX
+    package counts them: 62 blocks of 40-head attention (head_dim 64) as
+    registered, or of MLA with its published ranks."""
+    cfg = tbase.get_config("minicpm3-4b").replace(**form)
+    assert tmodel.count_params(cfg)["total"] == total
+    assert jmodel.count_params(jbase.get_config("minicpm3-4b").replace(
+        **form))["total"] == total
+
+
 def test_unported_families_raise():
-    """MLA (the block kind, or ``attention="mla"`` as minicpm3-4b sets it)
-    and MoE raise in every entry point, naming what ROADMAP.md has left;
-    the encoder-decoder and the vision stub are ported."""
+    """MoE raises in every entry point, naming what ROADMAP.md has left;
+    MLA (the block kind, or ``attention="mla"`` as minicpm3-4b sets it),
+    the encoder-decoder and the vision stub are ported and build."""
     cfg = tbase.smoke_config("veloc-demo-100m")
     gen = torch.Generator().manual_seed(0)
     mla = tbase.MLACfg(32, 16, 8, 8, 8)
-    for bad in (cfg.replace(block_pattern=("mla",)),
-                cfg.replace(attention="mla", mla=mla)):
-        with pytest.raises(NotImplementedError,
-                           match="item 9 has MLA left"):
-            tmodel.init_model(bad, generator=gen, device="cpu")
-        for fn in (tmodel.count_params, lambda c: tmodel.batch_struct(c, SM),
-                   tmodel.make_loss_fn, tmodel.make_decode_fn):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                fn(bad)
     moe = cfg.replace(moe=tbase.MoECfg(4, 2, 32))
     for fn in (lambda c: tmodel.init_model(c, generator=gen, device="cpu"),
                lambda c: tmodel.batch_struct(c, SM), tmodel.make_prefill_fn,
                lambda c: tmodel.cache_init(c, 2, 8, device="cpu")):
         with pytest.raises(NotImplementedError, match="MoE note"):
             fn(moe)
-    for ok in (cfg.replace(is_encoder_decoder=True, enc_layers=1),
+    for ok in (cfg.replace(block_pattern=("mla",), mla=mla),
+               cfg.replace(attention="mla", mla=mla),
+               cfg.replace(is_encoder_decoder=True, enc_layers=1),
                cfg.replace(frontend="vision", num_patches=2)):
         tmodel.init_model(ok, generator=gen, device="cpu")
         tmodel.batch_struct(ok, SM)
+    with pytest.raises(ValueError, match="needs cfg.mla"):
+        tmodel.init_model(cfg.replace(block_pattern=("mla",)),
+                          generator=gen, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "grok-1-314b",
-                                  "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
 def test_unported_archs_stay_out_of_the_registry(arch):
-    """The JAX package's MLA and MoE archs are not in the port's registry:
+    """The JAX package's MoE archs are not in the port's registry:
     ``get_config`` and ``smoke_config`` raise ``KeyError``; their JAX
     configs, carried across, raise ``NotImplementedError``."""
     assert arch in jbase.list_configs()
