@@ -63,11 +63,11 @@ def rms_norm(x, scale, eps=1e-6):
 
 def rope_factor(half, theta, dtype, device=None):
     """The rotary frequencies ``theta ** (-i / half)``, i < half, in
-    ``dtype``.  Torch's f32 ``pow`` gives XLA's bits at half = 16 (MLA's
-    32-wide rope) but misses by an ulp at some entries of half = 32 and 64
-    (held in ``tests/test_torch_mla.py``)."""
+    ``dtype``.  ``i / half`` is taken in ``dtype`` and the power in float64,
+    rounded once: XLA's f32 ``pow`` is correctly rounded, torch's misses by
+    an ulp at some entries of half = 32 and 64 (head_dim 64 and 128)."""
     freq = torch.arange(half, dtype=dtype, device=device) / half
-    return theta ** (-freq)
+    return (theta ** (-freq.double())).to(dtype)
 
 
 def rope(x, positions, theta=10_000.0):

@@ -158,8 +158,10 @@ def prefill_block(p, cfg, kind: str, x, positions, cache_len=None):
     # attention: recompute the cache entries (cheap beside attention)
     xn = L.rms_norm(x, p["norm1"])
     if kind == "mla":
-        mix = L.apply_mla(p["mix"], cfg, xn, positions)
-        _, _, latent, k_rope = L._mla_qkv(p["mix"], cfg, xn.to(ct), positions)
+        q_nope, q_rope, latent, k_rope = L._mla_qkv(p["mix"], cfg, xn.to(ct),
+                                                    positions)
+        mix = L._mla_attend(p["mix"], cfg, q_nope, q_rope, latent, k_rope,
+                            causal=True)
         entries = {"latent": latent.to(ct), "k_rope": k_rope[:, :, 0].to(ct)}
     else:
         window = cfg.window if kind == "local_attn" else 0

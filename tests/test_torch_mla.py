@@ -19,9 +19,11 @@ holds are the port's own: one-token decode against the forward pass
 within 1e-12 for the block (no bf16, no f32 anywhere, only float64 sums in
 other orders) and 1e-6 for the LM, as every decode check is, and the
 chunked attention branch against the unchunked one within 1e-12.  The
-rotary factor at MLA's rope width (half = 16) and checkpoint bytes are
-equal bit for bit.
+rotary factor (half = 16, MLA's rope, and the other widths) and checkpoint
+bytes are equal bit for bit.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -141,19 +143,32 @@ def test_init_mla_names_shapes_dtypes_match_jax(size):
             assert torch.equal(got[k], torch.ones_like(got[k]))
 
 
-@pytest.mark.parametrize("half", [4, 8, 16])
+def _jax_rope_factor(half):
+    return 10_000.0 ** (-(jnp.arange(half, dtype=jnp.float32) / half))
+
+
+@pytest.mark.parametrize("half", [4, 8, 16, 32, 64])
 def test_rope_factor_bit_equal_to_jax(half):
     """The rotary factor ``theta ** (-i / half)`` in f32, bit for bit as
     XLA computes it (jitted and not): half = 16 is minicpm3-4b's 32-wide
-    MLA rope, 4 and 8 the smoke widths."""
+    MLA rope, 32 its ``attn`` form's head_dim 64 (phi3's too), 64 head_dim
+    128, 4 and 8 the smoke widths.  Torch's own f32 ``pow`` misses at 32
+    and 64."""
     got = tL.rope_factor(half, 10_000.0, torch.float32).numpy()
-
-    def jfactor():
-        return 10_000.0 ** (-(jnp.arange(half, dtype=jnp.float32) / half))
-
-    for want in (np.asarray(jfactor()), np.asarray(jax.jit(jfactor)())):
+    fn = functools.partial(_jax_rope_factor, half)
+    for want in (np.asarray(fn()), np.asarray(jax.jit(fn)())):
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.view(np.uint32))
+
+
+@pytest.mark.parametrize("half", [24, 48, 96])
+def test_rope_factor_bit_equal_to_eager_jax(half):
+    """Where ``half`` is no power of two, jitted XLA's factor differs from
+    its eager one at some entries; the port's equals the eager one, the
+    correctly rounded f32 power of the same f32 ``i / half``."""
+    got = tL.rope_factor(half, 10_000.0, torch.float32).numpy()
+    want = np.asarray(_jax_rope_factor(half))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def test_mla_qkv_matches_jax():
