@@ -87,8 +87,9 @@ any failure (the script then exits non-zero):
      recurrentgemma-2b's, each within ``SCAN_ERR_RATIO`` times its f32
      reference form's error against a float64 run (a ``recurrent scans
      {...}`` line);
-  7d. the xlstm train path (``xlstm_train_path``): xlstm-1.3b whole (48
-     layers, a 22.17 GB train state) through the trainer with a checkpoint
+  7d. the xlstm train path (``xlstm_train_path``): xlstm-1.3b at full
+     width cut to 24 of its 48 layers (``--num-layers``; a 12.32 GB train
+     state) through the trainer with a checkpoint
      every 2 steps, a failure after step 3 and recovery from v2,
      ``--capture standalone``; every version read back by a fresh client,
      the recovered and the last state held against a replay without
@@ -145,6 +146,19 @@ any failure (the script then exits non-zero):
      ``minicpm3 decode``: ``decode_check`` of both forms (the registered
      plain attention and MLA) at full width cut to 4 layers (f32 within
      ``STUB_F32_TOL``, float64 within ``F64_TOL``);
+  7l. ``grok serve clone``: the same clone of grok-1-314b at full width
+     cut to one layer (8 experts of d_ff 32,768, top-2; 6,530,598,912
+     parameters in bf16, K/V caches of 8,388,608 bytes), with the
+     prefill's routing: dropped slots and the fewest and most slots an
+     expert was routed and kept (``routing_stats``);
+  7m. ``grok decode``: ``decode_check`` of that layer at capacity factor
+     E/k (no slot drops), its parameters drawn anew in f32, then in
+     float64 (f32 within ``STUB_F32_TOL``, float64 within ``F64_TOL``);
+  7n. ``kimi serve``: kimi-k2-1t-a32b at full width cut to one layer (384
+     experts of d_ff 2048, top-8; 19,378,623,488 parameters, 38.76 GB in
+     bf16): 4 rows, a 256-token prompt, 16 greedy bf16 steps, the
+     prefill's routing, peak device memory; not cloned (its clone would
+     pass through the host's memory);
   8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
      checksum rows, the train path's one-rank shard and the xlstm and
@@ -180,6 +194,7 @@ Without a GPU it prints no result and exits with code 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -1803,10 +1818,15 @@ SCAN_ERR_RATIO = 10.0
 #: the xlstm train path: steps, a checkpoint every XLSTM_EVERY steps, the
 #: simulated failure after step XLSTM_FAIL (recovery from the version before)
 XLSTM_STEPS, XLSTM_EVERY, XLSTM_FAIL = 4, 2, 3
-#: ``--capture standalone --keep-versions 1``: ``xlstm_train_path`` says why
+#: ``--capture standalone --keep-versions 1``: ``xlstm_train_path`` says
+#: why.  Depth cut to 24 of 48 layers (3 of 6 groups of its pattern) to
+#: keep the whole script under 1,000 s with the MoE lines (PERF.md §4)
+XLSTM_LAYERS = 24
 XLSTM_PATH = {"arch": "xlstm-1.3b", "seq_len": 256, "batch": 8,
+              "layers": XLSTM_LAYERS,
               "steps": XLSTM_STEPS, "every": XLSTM_EVERY, "fail": XLSTM_FAIL,
-              "flags": ["--capture", "standalone", "--keep-versions", "1"]}
+              "flags": ["--capture", "standalone", "--keep-versions", "1",
+                        "--num-layers", str(XLSTM_LAYERS)]}
 #: the decode checks: prompt tokens, decode steps and rows, and the
 #: tolerance (rtol and atol) of tests/test_recurrent_equiv.py
 DECODE_PROMPT, DECODE_STEPS, DECODE_ROWS = 240, 16, 2
@@ -2005,6 +2025,17 @@ def _profile_step(torch, fn, trace: Path) -> dict:
             "top": [[name, ms, n] for name, (ms, n) in top]}
 
 
+def path_config(path: dict):
+    """A train path's config: its arch, cut to ``path["layers"]`` when
+    given (as the trainer's ``--num-layers`` cuts it)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(path["arch"])
+    if "layers" in path:
+        cfg = cfg.replace(num_layers=path["layers"])
+    return cfg
+
+
 def replay_reference(torch, path: dict, seed: int, trace: Path) -> dict:
     """A train path's run (``path``: one of ``XLSTM_PATH``,
     ``WHISPER_PATH``) replayed with the trainer's own parts and no
@@ -2015,13 +2046,12 @@ def replay_reference(torch, path: dict, seed: int, trace: Path) -> dict:
     each operator's first use; the step after the failure is profiled,
     ``_profile_step``) and, per checkpointed step, the state's per-leaf
     tables (``state_tables``): what each version must hold."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.core.capture import snapshot_device
     from repro_torch.train.data import SyntheticStream
     from repro_torch.train.steps import init_train_state, make_train_step
 
-    cfg = get_config(path["arch"])
+    cfg = path_config(path)
     steps, every, fail = path["steps"], path["every"], path["fail"]
     state = init_train_state(
         cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
@@ -2181,7 +2211,10 @@ def decode_check(torch, cfg, params, seed: int, *, prompt=DECODE_PROMPT,
     the f32 forward itself lies within ``DECODE_TOL`` of the float64
     forward of the same depth.  Past that, rounding amplified through a
     deep stack, not prefill or decode, decides the f32 gap (PERF.md §6),
-    and it is reported only.  ``params`` lie on the card."""
+    and it is reported only.  ``params`` lie on the card, or are a
+    function of a dtype name that builds them there anew for each run
+    (``f64_layers`` then does not apply), so that one copy of the
+    parameters exists at a time."""
     from repro_torch.core.capture import map_tree
     from repro_torch.models.layers import torch_dtype
 
@@ -2207,7 +2240,9 @@ def decode_check(torch, cfg, params, seed: int, *, prompt=DECODE_PROMPT,
     with torch.no_grad():
         for name, dt in (("f32", "float32"), ("f64", "float64")):
             c, p = cfg.replace(compute_dtype=dt), params
-            if dt == "float64":
+            if callable(params):
+                p = params(dt)
+            elif dt == "float64":
                 if f64_layers:
                     c, p = cut_depth(c, p, f64_layers)
                 p = map_tree(lambda _, t: t.double(), p)
@@ -2385,20 +2420,19 @@ def checked_train_path(torch, path: dict, scratch: Path, seed: int,
 
 def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> tuple:
     """The xlstm-1.3b train path (``checked_train_path``): the trainer at
-    full width and depth (48 layers, 1,847,216,464 parameters; f32 with
-    AdamW moments, 22.17 GB), batch 8 x 256, bf16 compute, a checkpoint
-    every ``XLSTM_EVERY`` steps, the failure after ``XLSTM_FAIL``.
-    ``--capture standalone``: the fused capture clones the whole state in
-    every step and keeps the previous step's clone alive through the next,
-    so with a version still in its device-to-host copy the card would hold
-    4 x 22.17 GB + 7.39 GB of gradients, more than its 80 GB; the
-    standalone capture clones only at a checkpoint.  The backend must drop
+    full width cut to ``XLSTM_LAYERS`` layers (24 of 48: 1,026,893,992
+    parameters; f32 with AdamW moments, 12.32 GB), batch 8 x 256, bf16
+    compute, a checkpoint every ``XLSTM_EVERY`` steps, the failure after
+    ``XLSTM_FAIL``.  ``--capture standalone``: the fused capture clones the
+    whole state in every step and keeps the previous step's clone alive
+    through the next, so with a version still in its device-to-host copy
+    the whole model (48 layers) would hold 4 x 22.17 GB + 7.39 GB of
+    gradients, more than the card's 80 GB; the standalone capture clones
+    only at a checkpoint, and the cut path keeps it.  The backend must drop
     that clone when its copy to the host ends (``snapshot_release``).  Then
     ``decode_check`` from the restored parameters.  Returns the ``xlstm
     train path`` and ``xlstm decode`` lines."""
     import gc
-
-    from repro_torch.configs import get_config
 
     scratch.mkdir(parents=True, exist_ok=True)
     disk = subprocess.run(["df", "-h", str(scratch)], capture_output=True,
@@ -2415,16 +2449,17 @@ def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    decode = decode_check(torch, get_config("xlstm-1.3b"), params, seed + 5)
+    decode = decode_check(torch, path_config(XLSTM_PATH), params, seed + 5)
     del params
     out["phase_s"]["decode"] = time.perf_counter() - t0
-    out = {"config": {"arch": "xlstm-1.3b", "layers": 48, "batch": [8, 256],
+    out = {"config": {"arch": "xlstm-1.3b", "layers": XLSTM_LAYERS,
+                      "batch": [8, 256],
                       "state_bytes": out.pop("state_bytes"),
                       "leaves": out.pop("leaves"), "steps": XLSTM_STEPS,
                       "ckpt_every": XLSTM_EVERY, "fail_at": XLSTM_FAIL},
-           "capture": "standalone (fused: 4 x 22.17 GB of state and "
-                      "snapshots + 7.39 GB of gradients exceed the card's "
-                      "80 GB)",
+           "capture": "standalone (fused, at the whole model's 48 layers: "
+                      "4 x 22.17 GB of state and snapshots + 7.39 GB of "
+                      "gradients exceed the card's 80 GB)",
            "snapshot_release": release, **out}
     return out, decode
 
@@ -2763,6 +2798,15 @@ MLA_CACHE_BYTES = 73_138_176
 MINICPM3_DECODE_LAYERS = 4
 CLONE_ROWS, CLONE_PROMPT, CLONE_CONTEXT = 4, 256, 512
 CLONE_STEPS, CLONE_AT, CLONE_AFTER = 32, 12, 8
+#: the MoE archs at full width cut to one layer (one grok layer's 8
+#: experts are 9.66 GB in bf16; kimi's one layer, 38.76 GB, is served but
+#: not cloned: a clone of it would pass through the host's memory), with
+#: their parameter counts; grok's K/V caches (1 layer x k, v x 4 rows x
+#: 512 slots x 8 heads x 128 x 2 bytes); kimi's greedy steps
+GROK_ARCH, KIMI_ARCH, MOE_LAYERS = "grok-1-314b", "kimi-k2-1t-a32b", 1
+GROK_PARAMS, KIMI_PARAMS = 6_530_598_912, 19_378_623_488
+GROK_CACHE_BYTES = 8_388_608
+KIMI_STEPS = 16
 
 
 def kv_cache_bytes(cfg, rows: int, context: int) -> int:
@@ -2775,14 +2819,59 @@ def kv_cache_bytes(cfg, rows: int, context: int) -> int:
         cfg.head_dim * cdt(cfg).itemsize
 
 
+@contextlib.contextmanager
+def moe_routing():
+    """Inside, each call of the port's ``moe._moe_block`` also appends its
+    config, input and router to the list yielded (its work is unchanged);
+    ``routing_stats`` reads them afterwards."""
+    from repro_torch.models import moe
+
+    block, calls = moe._moe_block, []
+
+    def recorded(cfg, x, router_w, *experts):
+        calls.append((cfg, x, router_w))
+        return block(cfg, x, router_w, *experts)
+
+    moe._moe_block = recorded
+    try:
+        yield calls
+    finally:
+        moe._moe_block = block
+
+
+def routing_stats(torch, calls) -> list:
+    """Per recorded MoE call: its tokens, slots (tokens x k), capacity C
+    per expert, dropped slots, and the fewest and most slots one expert was
+    routed and kept, from the port's own ``_route`` and ``_dispatch`` on
+    the call's inputs."""
+    from repro_torch.models import moe
+
+    out = []
+    for cfg, x, router_w in calls:
+        E = cfg.moe.num_experts
+        C = moe._capacity(x.shape[0], cfg)
+        ids, _ = moe._route(router_w, cfg, x)
+        flat = ids.reshape(-1)
+        _, keep = moe._dispatch(flat, E, C)
+        routed = torch.bincount(flat, minlength=E)
+        kept = torch.bincount(flat[keep], minlength=E)
+        out.append({"tokens": x.shape[0], "slots": flat.numel(),
+                    "capacity": C, "dropped": int((~keep).sum()),
+                    "routed_load": [int(routed.min()), int(routed.max())],
+                    "kept_load": [int(kept.min()), int(kept.max())]})
+    return out
+
+
 def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
                 ) -> dict:
     """DeepClone at full width: ``cfg`` whole (phi3-mini-3.8b: 32 layers,
     d_model 3072, 32 heads, d_ff 8192, vocab 32,064, 3,822,259,200
     parameters, 15.3 GB in f32; minicpm3-4b's MLA form: 62 layers, d_model
     2560, 40 heads, d_ff 6400, vocab 73,448, 4,262,025,728 parameters, 17.05
-    GB) from a seeded initialisation on the card serves ``CLONE_ROWS``
-    rows: a prefill of ``CLONE_PROMPT`` tokens into caches of
+    GB) or cut in depth (grok-1-314b: 1 layer, d_model 6144, 48 heads, 8
+    experts of d_ff 32,768, top-2, vocab 131,072, 6,530,598,912 parameters,
+    13.06 GB in bf16) from a seeded initialisation on the card serves
+    ``CLONE_ROWS`` rows: a prefill of ``CLONE_PROMPT`` tokens into caches of
     ``CLONE_CONTEXT``, then ``CLONE_STEPS`` greedy decode steps in bf16.
     After step ``CLONE_AT`` an async serialize/local/flush checkpoint takes
     the serving state (params, caches, token, position) while decoding
@@ -2791,7 +2880,8 @@ def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
     scratch restores the clone from a ``meta`` template (no memory) and
     continues to step ``CLONE_STEPS``: its logits and tokens must equal
     the primary's bit for bit (deterministic algorithms), and its params'
-    and caches' per-leaf Fletcher tables the live ones'."""
+    and caches' per-leaf Fletcher tables the live ones'.  A MoE config
+    also reports its prefill's routing (``routing_stats``)."""
     import gc
 
     from repro_torch.core import ModuleSpec, PipelineSpec, VelocClient
@@ -2821,8 +2911,9 @@ def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
         with torch.no_grad(), MemorySampler(torch) as mem:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, cache = make_prefill_fn(cfg, cache_len=CLONE_CONTEXT)(
-                params, {"tokens": prompt})
+            with moe_routing() as routed:
+                lg, cache = make_prefill_fn(cfg, cache_len=CLONE_CONTEXT)(
+                    params, {"tokens": prompt})
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             tok = lg.argmax(-1)[:, None].to(torch.int32)
@@ -2939,6 +3030,8 @@ def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
            "fresh_restore_s": restore_s,
            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
            "host": _host_memory()}
+    if cfg.moe is not None:
+        out["prefill_routing"] = routing_stats(torch, routed)
     if not (out["logits_equal"] and out["tokens_equal"] and out["finite"]):
         raise AssertionError(f"{cfg.name} serve clone: the replica differs "
                              f"from the primary: {out}")
@@ -2967,6 +3060,104 @@ def minicpm3_decode(torch, seed: int) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def moe_config(arch: str, **moe):
+    """``arch`` at full width cut to ``MOE_LAYERS``, its ``MoECfg`` fields
+    overridden by ``moe``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=MOE_LAYERS,
+                       moe=dataclasses.replace(cfg.moe, **moe))
+
+
+def grok_decode(torch, seed: int) -> dict:
+    """``decode_check`` of grok-1-314b at full width cut to ``MOE_LAYERS``
+    at ``capacity_factor = E / k``: C >= N, so no slot drops in the
+    forward pass either, and decode can equal it.  The parameters are
+    drawn anew in each run's dtype from one seed (26.1 GB in f32, 52.2 GB
+    in float64), one copy at a time: f32 within ``STUB_F32_TOL``, float64
+    within ``F64_TOL``."""
+    import gc
+
+    from repro_torch.models.model import init_model
+
+    m = moe_config(GROK_ARCH).moe
+    cfg = moe_config(GROK_ARCH,
+                     capacity_factor=m.num_experts / m.experts_per_token)
+
+    def params(dtype):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return init_model(cfg.replace(param_dtype=dtype), generator=gen,
+                          device="cuda")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_check(torch, cfg, params, seed + 1, f32_tol=STUB_F32_TOL)
+    out["capacity_factor"] = cfg.moe.capacity_factor
+    out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def kimi_serve(torch, seed: int) -> dict:
+    """kimi-k2-1t-a32b at full width (d_model 7168, 64 heads, 8 KV heads,
+    384 experts of d_ff 2048, top-8, vocab 163,840) cut to ``MOE_LAYERS``
+    (19,378,623,488 parameters, 38.76 GB in bf16) from a seeded
+    initialisation on the card: a prompt of ``CLONE_PROMPT`` tokens in
+    ``CLONE_ROWS`` rows, then ``KIMI_STEPS`` greedy decode steps in bf16.
+    Tokens must lie in the vocabulary and logits be finite; the prefill's
+    routing (``routing_stats``) and the decode steps' dropped slots are
+    reported."""
+    import gc
+
+    from repro_torch.core.capture import leaves_with_paths
+    from repro_torch.models.model import count_params, init_model
+
+    cfg = moe_config(KIMI_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for _, t in leaves_with_paths(params))
+    if not n == count_params(cfg)["total"] == KIMI_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n} parameters")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (CLONE_ROWS, CLONE_PROMPT),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    with moe_routing() as routed:
+        served = greedy_serve(torch, cfg, params, batch, KIMI_STEPS)
+    stats = routing_stats(torch, routed)
+    out = {"config": {"arch": cfg.name, "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+                      "top_k": cfg.moe.experts_per_token, "params": n,
+                      "rows": CLONE_ROWS, "prompt": CLONE_PROMPT,
+                      "steps": KIMI_STEPS, "compute": cfg.compute_dtype,
+                      "param_dtype": cfg.param_dtype},
+           "init_s": init_s,
+           "prefill_ms": served["prefill_ms"],
+           "decode_ms_per_step": _stats(served["step_ms"]),
+           "prefill_routing": stats[:cfg.num_layers],
+           "decode_dropped": sum(s["dropped"]
+                                 for s in stats[cfg.num_layers:]),
+           "finite": bool(torch.isfinite(served["logits"]).all()),
+           "tokens_in_vocab": int(served["tokens"].max()) < cfg.vocab_size,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (out["finite"] and out["tokens_in_vocab"]):
+        raise AssertionError(f"kimi serve: non-finite logits or a token out "
+                             f"of the vocabulary: {out}")
     return out
 
 
@@ -3258,6 +3449,27 @@ def main(argv=None) -> int:
         if not d["ok"]:
             raise AssertionError(f"minicpm3 {form} decode differs from the "
                                  f"forward pass beyond its tolerance: {d}")
+    grok_cfg = moe_config(GROK_ARCH)
+    gclone, by_path["grok"] = run_path(
+        "grok serve clone", ("checksum",),
+        lambda: serve_clone(torch, scratch / "grok", args.seed + 17,
+                            grok_cfg, GROK_PARAMS))
+    shutil.rmtree(scratch / "grok", ignore_errors=True)
+    gclone["launches"] = by_path["grok"]
+    if gclone["config"]["cache_bytes"] != GROK_CACHE_BYTES or \
+            kv_cache_bytes(grok_cfg, CLONE_ROWS, CLONE_CONTEXT) != \
+            GROK_CACHE_BYTES:
+        raise AssertionError(f"grok: K/V caches of "
+                             f"{gclone['config']['cache_bytes']} bytes")
+    line("grok serve clone", gclone)
+    gdecode = grok_decode(torch, args.seed + 18)
+    line("grok decode", gdecode)
+    if not gdecode["ok"]:
+        raise AssertionError(f"grok decode differs from the forward pass "
+                             f"beyond its tolerance: {gdecode}")
+    kimi, by_path["kimi"] = run_path(
+        "kimi serve", (), lambda: kimi_serve(torch, args.seed + 19))
+    line("kimi serve", kimi)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],

@@ -140,16 +140,17 @@ class ModelConfig:
         return count_params(self)
 
 
-#: The ported configurations: the dense (minicpm3-4b's MLA among them),
-#: recurrent, encoder-decoder and vision-stub families.  The JAX package's
-#: MoE architectures join with their model family (ROADMAP.md queue 1,
-#: item 9's MoE note).
+#: The ported configurations: every architecture of the JAX package's
+#: registry, the dense (minicpm3-4b's MLA among them), MoE, recurrent,
+#: encoder-decoder and vision-stub families.
 _REGISTRY = {
     "veloc-demo-100m": "veloc_demo_100m",
     "minitron-8b": "minitron_8b",
     "yi-9b": "yi_9b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "minicpm3-4b": "minicpm3_4b",
+    "grok-1-314b": "grok1_314b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
     "xlstm-1.3b": "xlstm_1_3b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "whisper-medium": "whisper_medium",

@@ -1,5 +1,5 @@
 """Model dispatch: one API over the ported architectures (decoder-only:
-dense, xLSTM, RG-LRU hybrids, the vision frontend stub; and the
+dense, MoE, xLSTM, RG-LRU hybrids, the vision frontend stub; and the
 encoder-decoder).
 
   init_model          params on an explicit device
@@ -11,9 +11,6 @@ encoder-decoder).
   make_batch          a concrete random batch (smoke tests, demos)
   count_params        exact parameter counts (total / active / expert)
   model_flops         6*N*D for training, 2*N*D otherwise
-
-MoE models are not ported yet (ROADMAP.md queue 1, item 9's MoE note):
-every entry point raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -31,14 +28,12 @@ from repro_torch.models import transformer as TF
 
 
 def init_model(cfg: ModelConfig, *, generator: torch.Generator, device):
-    TF.check_config(cfg)
     if cfg.is_encoder_decoder:
         return ED.init_encdec(generator, cfg, torch.device(device))
     return TF.init_lm(generator, cfg, torch.device(device))
 
 
 def make_loss_fn(cfg: ModelConfig):
-    TF.check_config(cfg)
     if cfg.is_encoder_decoder:
         return lambda params, batch: ED.encdec_loss(params, cfg, batch)
     return lambda params, batch: TF.lm_loss(params, cfg, batch)
@@ -48,7 +43,6 @@ def make_prefill_fn(cfg: ModelConfig, cache_len=None):
     """``prefill(params, batch)`` -> ``(last_logits, cache)``; ``cache_len``
     sizes the self-attention caches for decoding past the prompt
     (``transformer.lm_prefill``, ``encdec.encdec_prefill``)."""
-    TF.check_config(cfg)
     if cfg.is_encoder_decoder:
         return lambda params, batch: ED.encdec_prefill(params, cfg, batch,
                                                        cache_len)
@@ -59,7 +53,6 @@ def make_prefill_fn(cfg: ModelConfig, cache_len=None):
 
 def make_decode_fn(cfg: ModelConfig):
     """``decode(params, cache, token, pos)`` -> ``(logits, cache)``."""
-    TF.check_config(cfg)
     if cfg.is_encoder_decoder:
         return lambda params, cache, token, pos: ED.encdec_decode_step(
             params, cfg, cache, token, pos)
@@ -68,7 +61,6 @@ def make_decode_fn(cfg: ModelConfig):
 
 
 def cache_init(cfg: ModelConfig, B: int, S: int, *, device):
-    TF.check_config(cfg)
     if cfg.is_encoder_decoder:
         return ED.encdec_cache_init(cfg, B, S, torch.device(device))
     return TF.lm_cache_init(cfg, B, S, torch.device(device))
@@ -90,7 +82,6 @@ def batch_struct(cfg: ModelConfig, shape: ShapeCfg, kind: str | None = None):
     embeddings in the compute dtype (the encoder-decoder's frames (B, T, d)
     and its min(dec_max_len, T) decoder tokens; the vision stub's patches
     (B, P, d) before T - P text tokens); decode: (token, pos)."""
-    TF.check_config(cfg)
     kind = kind or shape.kind
     B, T = shape.global_batch, shape.seq_len
     ct = cfg.compute_dtype
@@ -137,22 +128,31 @@ def make_batch(cfg: ModelConfig, shape: ShapeCfg, seed: int = 0,
 
 def count_params(cfg: ModelConfig) -> dict:
     """Exact counts from the parameter tree, laid out on the meta device
-    (no allocation)."""
+    (no allocation): ``total``, ``embed`` (embedding and LM head),
+    ``expert`` (the MoE experts' stacks) and ``active`` (``total`` less
+    the experts a token does not use: k of E)."""
     params = init_model(cfg, generator=torch.Generator().manual_seed(0),
                         device="meta")
     total = expert = embed = 0
     for name, leaf in leaves_with_paths(params):
         n = math.prod(leaf.shape)
         total += n
+        if cfg.moe is not None and leaf.ndim >= 3 and any(
+                w in name for w in ("w_gate", "w_up", "w_down")):
+            expert += n
         if "emb" in name or "lm_head" in name:
             embed += n
-    return {"total": total, "active": total - expert, "expert": expert,
+    active = total - expert
+    if expert:
+        active += int(expert * cfg.moe.experts_per_token
+                      / cfg.moe.num_experts)
+    return {"total": total, "active": active, "expert": expert,
             "embed": embed}
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeCfg,
                 kind: str | None = None) -> float:
-    """MODEL_FLOPS = 6*N*D for training (2*N*D otherwise), N the
+    """MODEL_FLOPS = 6*N*D for training (2*N*D otherwise), N the active
     non-embedding parameters and D the tokens processed (a decode step
     processes one token per sequence; the encoder-decoder processes its
     frames and its decoder tokens)."""

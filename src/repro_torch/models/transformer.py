@@ -9,14 +9,15 @@ group recomputed in the backward pass when ``cfg.remat``
 (``torch.utils.checkpoint``, as ``jax.checkpoint``).
 
 Ported block kinds: ``"attn"``, ``"local_attn"`` and ``"mla"`` (latent
-attention, its cache the latent and the shared rotated key) with a dense
-MLP, xLSTM's ``"mlstm"`` and ``"slstm"`` (self-contained blocks) and
-RG-LRU's ``"rglru"`` (the recurrent mix, then a dense MLP), each with its
-prefill (forward plus the decode cache) and one-token decode.
+attention, its cache the latent and the shared rotated key), xLSTM's
+``"mlstm"`` and ``"slstm"`` (self-contained blocks) and RG-LRU's
+``"rglru"`` (the recurrent mix), each with its prefill (forward plus the
+decode cache) and one-token decode.  The FFN half of the attention-style
+and RG-LRU blocks is a dense MLP, or the MoE layer when ``cfg.moe`` is set
+(``repro_torch.models.moe``, every expert on the one card).
 ``extra_embeds`` (the vision frontend stub's patch embeddings) are
 prepended to the token embeddings.  The sharding constraints of the JAX
 package (``_constrain``, ``gather_fsdp``) have nothing to do on one card.
-MoE blocks wait (ROADMAP.md queue 1, item 9's MoE note).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as R
 
 _PORTED_KINDS = ("attn", "local_attn", "mla", "mlstm", "slstm", "rglru")
@@ -36,22 +38,17 @@ def _check_kind(cfg, kind: str):
         raise ValueError(f"unknown block kind {kind!r}")
     if kind == "mla" and cfg.mla is None:
         raise ValueError("block kind 'mla' needs cfg.mla")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet: ROADMAP.md queue 1, item 9's "
-            "MoE note puts them after item 10")
-
-
-def check_config(cfg):
-    """Raise ``NotImplementedError`` for a configuration whose blocks the
-    port does not have yet (MoE)."""
-    for kind in cfg.block_pattern:
-        _check_kind(cfg, kind)
 
 
 # ---------------------------------------------------------------------------
 # single block
 # ---------------------------------------------------------------------------
+
+
+def _ffn_init(gen, cfg, device):
+    if cfg.moe is not None:
+        return MOE.init_moe(gen, cfg, device)
+    return L.init_mlp(gen, cfg, device)
 
 
 def init_block(gen, cfg, kind: str, device):
@@ -64,15 +61,16 @@ def init_block(gen, cfg, kind: str, device):
     ones = torch.ones((cfg.d_model,), dtype=dt, device=device)
     if kind == "rglru":
         return {"mix": R.init_rglru_block(gen, cfg, device), "norm2": ones,
-                "ffn": L.init_mlp(gen, cfg, device)}
+                "ffn": _ffn_init(gen, cfg, device)}
     mix = L.init_mla(gen, cfg, device) if kind == "mla" else \
         L.init_attn(gen, cfg, device)
     return {"norm1": ones, "mix": mix, "norm2": ones.clone(),
-            "ffn": L.init_mlp(gen, cfg, device)}
+            "ffn": _ffn_init(gen, cfg, device)}
 
 
 def _ffn(p, cfg, x):
-    return x + L.apply_mlp(p["ffn"], cfg, L.rms_norm(x, p["norm2"]))
+    apply = MOE.apply_moe if cfg.moe is not None else L.apply_mlp
+    return x + apply(p["ffn"], cfg, L.rms_norm(x, p["norm2"]))
 
 
 def apply_block(p, cfg, kind: str, x, positions):
@@ -227,12 +225,16 @@ def init_lm(gen, cfg, device):
 
 def _stack(blocks: list):
     """One tree (dicts and tuples) whose leaves stack the given trees'
-    leaves."""
+    leaves.  Of one tree, the leaves are views with a leading dimension of
+    1, not copies: a single group's parameters (38.8 GB for one
+    kimi-k2-1t-a32b layer) are never held twice."""
     if isinstance(blocks[0], dict):
         return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
     if isinstance(blocks[0], tuple):
         return tuple(_stack([b[i] for b in blocks])
                      for i in range(len(blocks[0])))
+    if len(blocks) == 1:
+        return blocks[0].unsqueeze(0)
     return torch.stack(blocks)
 
 

@@ -28,9 +28,11 @@ prefill.  The encoder-decoder has its own file (``test_torch_encdec``).
 minicpm3-4b joins the dense family in the form the JAX package builds
 (plain attention: ``cfg.attention`` selects nothing there) and, as the
 ``"mla"`` block pattern, at the dense tolerances above; its MLA layers,
-prefill and decode are held in ``test_torch_mla``.  MoE stays refused:
-``get_config`` raises ``KeyError`` for its archs, and every entry point
-``NotImplementedError`` for such a config."""
+prefill and decode are held in ``test_torch_mla``.  The MoE archs
+(grok-1-314b, kimi-k2-1t-a32b) join the registry's tests here (the stream,
+the bf16 loss, a train step, shapes, counts and flops); their layer,
+routing, gradients, prefill and decode are held in ``test_torch_moe``.
+Every family of the JAX package builds."""
 import dataclasses
 
 import jax
@@ -59,6 +61,7 @@ from repro_torch.train import steps as tsteps
 
 DENSE = ["veloc-demo-100m", "minitron-8b", "yi-9b", "phi3-mini-3.8b",
          "minicpm3-4b"]
+MOE = ["grok-1-314b", "kimi-k2-1t-a32b"]
 RECURRENT = ["xlstm-1.3b", "recurrentgemma-2b"]
 STUBS = ["whisper-medium", "phi-3-vision-4.2b"]  # frontend-stub families
 SM = tbase.ShapeCfg("smoke", 32, 2, "train")
@@ -146,7 +149,7 @@ def _assert_tree_close(got, want, rtol, atol):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_stream_batches_bit_equal(arch):
     jcfg, tcfg = jbase.smoke_config(arch), tbase.smoke_config(arch)
     shape = tbase.ShapeCfg("s", 48, 3, "train")
@@ -214,7 +217,7 @@ def test_f32_logits_loss_grads_match_jax(variant):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_bf16_loss_close_to_jax(arch):
     jcfg, tcfg = jbase.smoke_config(arch), tbase.smoke_config(arch)
     assert jcfg.compute_dtype == "bfloat16"
@@ -354,7 +357,7 @@ def test_train_step_matches_jax_step():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_train_step_smoke(arch):
     cfg = tbase.smoke_config(arch)
     state = tsteps.init_train_state(
@@ -375,7 +378,7 @@ def test_train_step_smoke(arch):
     assert int(new_state["opt"]["step"]) == 2
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_batch_struct_covers_shapes(arch):
     tcfg, jcfg = tbase.get_config(arch), jbase.get_config(arch)
     for sname, shape in tbase.SHAPES.items():
@@ -390,7 +393,7 @@ def test_batch_struct_covers_shapes(arch):
             {k: (tuple(s.shape), s.dtype) for k, s in want.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_param_counts_and_flops_match_jax(arch):
     tcfg, jcfg = tbase.get_config(arch), jbase.get_config(arch)
     assert tcfg.param_counts() == jmodel.count_params(jcfg)
@@ -405,18 +408,21 @@ def test_param_counts_match_published():
     expect = {"yi-9b": (8.8e9, 0.1), "phi3-mini-3.8b": (3.8e9, 0.1),
               "minitron-8b": (7.7e9, 0.15), "veloc-demo-100m": (8.3e7, 0.01),
               "xlstm-1.3b": (1.9e9, 0.5), "recurrentgemma-2b": (3.5e9, 0.5),
-              "whisper-medium": (0.8e9, 0.3), "minicpm3-4b": (5.0e9, 0.3)}
+              "whisper-medium": (0.8e9, 0.3), "minicpm3-4b": (5.0e9, 0.3),
+              "kimi-k2-1t-a32b": (1.04e12, 0.05),
+              "grok-1-314b": (3.16e11, 0.05)}
     for arch, (want, tol) in expect.items():
         got = tbase.get_config(arch).param_counts()["total"]
         assert abs(got - want) / want < tol, (arch, got, want)
 
 
 def test_registry_is_the_dense_family():
-    """The registry is the ported families, dense, recurrent,
-    encoder-decoder and vision stub, each config equal to the JAX
-    package's."""
-    assert set(tbase.list_configs()) == set(DENSE + RECURRENT + STUBS)
-    for arch in DENSE + RECURRENT + STUBS:
+    """The registry is the ported families, dense, MoE, recurrent,
+    encoder-decoder and vision stub: the JAX package's whole registry,
+    each config equal to the JAX package's."""
+    assert set(tbase.list_configs()) == set(DENSE + MOE + RECURRENT + STUBS)
+    assert set(tbase.list_configs()) == set(jbase.list_configs())
+    for arch in DENSE + MOE + RECURRENT + STUBS:
         for get in ("get_config", "smoke_config"):
             assert dataclasses.asdict(getattr(tbase, get)(arch)) == \
                 dataclasses.asdict(getattr(jbase, get)(arch))
@@ -436,50 +442,53 @@ def test_minicpm3_counts_at_full_width(form, total):
 
 
 def test_unported_families_raise():
-    """MoE raises in every entry point, naming what ROADMAP.md has left;
-    MLA (the block kind, or ``attention="mla"`` as minicpm3-4b sets it),
-    the encoder-decoder and the vision stub are ported and build."""
+    """No family is left unported: MoE (on the attention and the RG-LRU
+    blocks), MLA (the block kind, or ``attention="mla"`` as minicpm3-4b
+    sets it), the encoder-decoder and the vision stub build in every entry
+    point; only a pattern the port cannot build raises (``"mla"`` without
+    ``cfg.mla``, an unknown kind)."""
     cfg = tbase.smoke_config("veloc-demo-100m")
     gen = torch.Generator().manual_seed(0)
     mla = tbase.MLACfg(32, 16, 8, 8, 8)
-    moe = cfg.replace(moe=tbase.MoECfg(4, 2, 32))
-    for fn in (lambda c: tmodel.init_model(c, generator=gen, device="cpu"),
-               lambda c: tmodel.batch_struct(c, SM), tmodel.make_prefill_fn,
-               lambda c: tmodel.cache_init(c, 2, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="MoE note"):
-            fn(moe)
-    for ok in (cfg.replace(block_pattern=("mla",), mla=mla),
+    moe = tbase.MoECfg(4, 2, 32)
+    for ok in (cfg.replace(moe=moe),
+               cfg.replace(moe=moe, block_pattern=("rglru", "attn"),
+                           lru_width=cfg.d_model),
+               cfg.replace(block_pattern=("mla",), mla=mla),
                cfg.replace(attention="mla", mla=mla),
                cfg.replace(is_encoder_decoder=True, enc_layers=1),
                cfg.replace(frontend="vision", num_patches=2)):
-        tmodel.init_model(ok, generator=gen, device="cpu")
+        params = tmodel.init_model(ok, generator=gen, device="cpu")
         tmodel.batch_struct(ok, SM)
+        tmodel.make_prefill_fn(ok)
+        tmodel.cache_init(ok, 2, 8, device="cpu")
+        if ok.moe is not None:
+            ffn = [b["ffn"] for b in params["blocks"]]
+            assert all(set(f) == {"router", "w_gate", "w_up", "w_down"}
+                       for f in ffn)
     with pytest.raises(ValueError, match="needs cfg.mla"):
         tmodel.init_model(cfg.replace(block_pattern=("mla",)),
                           generator=gen, device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tmodel.init_model(cfg.replace(block_pattern=("cross",)),
+                          generator=gen, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", MOE)
 def test_unported_archs_stay_out_of_the_registry(arch):
-    """The JAX package's MoE archs are not in the port's registry:
-    ``get_config`` and ``smoke_config`` raise ``KeyError``; their JAX
-    configs, carried across, raise ``NotImplementedError``."""
-    assert arch in jbase.list_configs()
-    with pytest.raises(KeyError):
-        tbase.get_config(arch)
-    with pytest.raises(KeyError):
-        tbase.smoke_config(arch)
-    jcfg = jbase.smoke_config(arch)
-    fields = dataclasses.asdict(jcfg)
-    fields["mla"] = None if jcfg.mla is None else tbase.MLACfg(
-        **fields["mla"])
-    fields["moe"] = None if jcfg.moe is None else tbase.MoECfg(
-        **fields["moe"])
-    tcfg = tbase.ModelConfig(**fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tmodel.count_params(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tmodel.batch_struct(tcfg, SM)
+    """The JAX package's MoE archs, once left out of the port's registry,
+    are in it: ``get_config`` and ``smoke_config`` equal JAX's, the port
+    counts their parameters as JAX does, and the active share lies within
+    the JAX test's bounds (kimi's "a32b")."""
+    assert arch in jbase.list_configs() and arch in tbase.list_configs()
+    for get in ("get_config", "smoke_config"):
+        tcfg, jcfg = getattr(tbase, get)(arch), getattr(jbase, get)(arch)
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+        got = tmodel.count_params(tcfg)
+        assert got == jmodel.count_params(jcfg) and got["expert"] > 0
+    lo, hi = {"grok-1-314b": (6e10, 1.1e11),
+              "kimi-k2-1t-a32b": (2.5e10, 4e10)}[arch]
+    assert lo < tmodel.count_params(tbase.get_config(arch))["active"] < hi
 
 
 # ---------------------------------------------------------------------------
