@@ -88,8 +88,8 @@ any failure (the script then exits non-zero):
      reference form's error against a float64 run (a ``recurrent scans
      {...}`` line);
   7d. the xlstm train path (``xlstm_train_path``): xlstm-1.3b at full
-     width cut to 24 of its 48 layers (``--num-layers``; a 12.32 GB train
-     state) through the trainer with a checkpoint
+     width cut to 24 of its 48 layers (``trainer_run`` cuts the trainer's
+     config; a 12.32 GB train state) through the trainer with a checkpoint
      every 2 steps, a failure after step 3 and recovery from v2,
      ``--capture standalone``; every version read back by a fresh client,
      the recovered and the last state held against a replay without
@@ -161,8 +161,9 @@ any failure (the script then exits non-zero):
      pass through the host's memory);
   8. each kernel against its plain PyTorch version on the card, bit-exact,
      at small shapes and at the exact shapes the paths gave it (one shard's
-     checksum rows, the train path's one-rank shard and the xlstm and
-     whisper paths' largest regions; the XOR group's words in the aligned row layout of
+     checksum rows, the train path's one-rank shard, the xlstm and
+     whisper paths' largest regions and the three serve clones' largest
+     leaves; the XOR group's words in the aligned row layout of
      ``ops.xor_reduce``; the largest leaf's and the 0-d ``opt/step`` leaf's
      words in 64 KiB rows for the block hash and its fused diff; the dirty
      rows of a 1% version of the largest leaf for the gather; the largest
@@ -260,14 +261,14 @@ def _max_abs_err(torch, a, b) -> int:
 
 
 def check_kernels(torch, gen, shard_rows: int, xor_words: int,
-                  train_rows: int, xlstm_rows: int,
-                  whisper_rows: int) -> dict:
+                  train_rows: int, regions: dict) -> dict:
     """Phase 8: every kernel against its plain version, bit-exact, at small
     shapes, at the main path's ``shard_rows`` and ``xor_words``, at the
-    train path's ``train_rows`` (its one-rank shard) and at the xlstm and
-    whisper paths' largest regions, ``xlstm_rows`` and ``whisper_rows``;
-    the times kept are the main path's, and the two regions' beside
-    them."""
+    train path's ``train_rows`` (its one-rank shard) and at each of
+    ``regions`` (path name -> rows of the largest table that path's state
+    checks launch: the xlstm and whisper paths' largest regions, the serve
+    clones' largest leaves); the times kept are the main path's, and each
+    region's beside them under its path's name."""
     import numpy as np
 
     from repro_torch.kernels import checksum as ck
@@ -276,7 +277,10 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int,
 
     stats = {}
     errs = []
-    for rows in (1, 65, train_rows, xlstm_rows, whisper_rows, shard_rows):
+    shapes = [(None, 1), (None, 65), (None, train_rows),
+              *regions.items(), (None, shard_rows)]
+    region_stats = {}
+    for region, rows in shapes:
         x = _random_words(torch, gen, (rows, 2048))
         got, want = ck.checksum(x), ref.checksum_ref(x)
         torch.cuda.synchronize()
@@ -292,13 +296,10 @@ def check_kernels(torch, gen, shard_rows: int, xor_words: int,
               f"bound {bound:.4f} ms, plain {plain_ms:.4f} ms")
         stats["checksum"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                  shape=[rows, 2048])
-        if rows == xlstm_rows:
-            xlstm = dict(stats["checksum"])
-        if rows == whisper_rows:
-            whisper = dict(stats["checksum"])
+        if region is not None:
+            region_stats[region] = dict(stats["checksum"])
         del x, got, want
-    stats["checksum"]["xlstm"] = xlstm
-    stats["checksum"]["whisper"] = whisper
+    stats["checksum"].update(region_stats)
     stats["checksum"]["max_abs_err"] = max(errs)
 
     errs = []
@@ -1825,8 +1826,7 @@ XLSTM_LAYERS = 24
 XLSTM_PATH = {"arch": "xlstm-1.3b", "seq_len": 256, "batch": 8,
               "layers": XLSTM_LAYERS,
               "steps": XLSTM_STEPS, "every": XLSTM_EVERY, "fail": XLSTM_FAIL,
-              "flags": ["--capture", "standalone", "--keep-versions", "1",
-                        "--num-layers", str(XLSTM_LAYERS)]}
+              "flags": ["--capture", "standalone", "--keep-versions", "1"]}
 #: the decode checks: prompt tokens, decode steps and rows, and the
 #: tolerance (rtol and atol) of tests/test_recurrent_equiv.py
 DECODE_PROMPT, DECODE_STEPS, DECODE_ROWS = 240, 16, 2
@@ -2027,7 +2027,7 @@ def _profile_step(torch, fn, trace: Path) -> dict:
 
 def path_config(path: dict):
     """A train path's config: its arch, cut to ``path["layers"]`` when
-    given (as the trainer's ``--num-layers`` cuts it)."""
+    given."""
     from repro_torch.configs import get_config
 
     cfg = get_config(path["arch"])
@@ -2093,19 +2093,28 @@ def replay_reference(torch, path: dict, seed: int, trace: Path) -> dict:
 
 
 def trainer_run(torch, path: dict, scratch: Path, seed: int) -> dict:
-    """The trainer ``repro_torch.launch.train`` on a train path's arch at
-    full width and depth, its batch, a checkpoint every ``every`` steps
-    through the one-rank async pipeline, the simulated failure after
-    ``fail`` and recovery, with the path's capture flags; the device
-    memory sampled throughout."""
+    """The trainer ``repro_torch.launch.train`` on a train path's config
+    (``path_config``: its arch at full width, cut in depth where the path
+    says so), its batch, a checkpoint every ``every`` steps through the
+    one-rank async pipeline, the simulated failure after ``fail`` and
+    recovery, with the path's capture flags; the device memory sampled
+    throughout."""
+    from unittest import mock
+
     from repro_torch.launch import train as trainer
+
+    build = trainer.build
+
+    def cut_build(*args):
+        return path_config(path), build(*args)[1]
 
     common = ["--arch", path["arch"], "--seq-len", str(path["seq_len"]),
               "--batch", str(path["batch"]),
               "--ckpt-every", str(path["every"]), "--seed", str(seed),
               "--scratch", str(scratch)] + path["flags"]
     torch.cuda.reset_peak_memory_stats()
-    with MemorySampler(torch) as mem:
+    with MemorySampler(torch) as mem, \
+            mock.patch.object(trainer, "build", cut_build):
         run = trainer.main(common + ["--mode", "async", "--steps",
                                      str(path["steps"]), "--fail-at",
                                      str(path["fail"])])
@@ -2196,26 +2205,37 @@ def cut_depth(cfg, params, n: int) -> tuple:
         params, blocks=first(params["blocks"]), rem=())
 
 
-def decode_check(torch, cfg, params, seed: int, *, prompt=DECODE_PROMPT,
-                 f64_layers: int | None = None,
+def on_card(cfg, params, f64_layers: int | None = None):
+    """``decode_check``'s ``build`` for ``params`` already on the card:
+    ``cfg`` and ``params`` as they are for float32; for float64 cut to
+    ``f64_layers`` layers a stack when given and cast."""
+    from repro_torch.core.capture import map_tree
+
+    def build(dtype: str) -> tuple:
+        if dtype == "float32":
+            return cfg, params
+        c, p = cut_depth(cfg, params, f64_layers) if f64_layers else \
+            (cfg, params)
+        return c, map_tree(lambda _, t: t.double(), p)
+    return build
+
+
+def decode_check(torch, cfg, build, seed: int, *, prompt=DECODE_PROMPT,
                  f32_tol: float | None = None) -> dict:
     """Prefill of ``prompt`` tokens (with the stub frontends' frames or
     patches, drawn on the card) into caches sized for the whole context,
     then ``DECODE_STEPS`` decode steps: each row (the prefill's last
     logits, then each decoded token's) against the forward pass's logits
-    at that position (``_forward_rows``).  Run in f32 compute, and in
-    float64 (the same code on the parameters cast to float64), cut to
-    ``f64_layers`` layers a stack when given.  The float64 rows are held
-    within ``F64_TOL``.  The f32 rows are held within ``f32_tol`` when
-    given; else within ``DECODE_TOL`` (the JAX test's rtol and atol) where
-    the f32 forward itself lies within ``DECODE_TOL`` of the float64
-    forward of the same depth.  Past that, rounding amplified through a
-    deep stack, not prefill or decode, decides the f32 gap (PERF.md §6),
-    and it is reported only.  ``params`` lie on the card, or are a
-    function of a dtype name that builds them there anew for each run
-    (``f64_layers`` then does not apply), so that one copy of the
-    parameters exists at a time."""
-    from repro_torch.core.capture import map_tree
+    at that position (``_forward_rows``).  Run in f32 compute and in
+    float64, each on what ``build(dtype)`` gives, a config of ``cfg``'s
+    width and the parameters in that dtype on the card (``on_card``, or
+    parameters drawn anew for each run, so that one copy exists at a
+    time).  The float64 rows are held within ``F64_TOL``.  The f32 rows
+    are held within ``f32_tol`` when given; else within ``DECODE_TOL``
+    (the JAX test's rtol and atol) where the f32 forward itself lies
+    within ``DECODE_TOL`` of the float64 forward of the same depth.  Past
+    that, rounding amplified through a deep stack, not prefill or decode,
+    decides the f32 gap (PERF.md §6), and it is reported only."""
     from repro_torch.models.layers import torch_dtype
 
     S = prompt + DECODE_STEPS
@@ -2234,18 +2254,14 @@ def decode_check(torch, cfg, params, seed: int, *, prompt=DECODE_PROMPT,
     V = cfg.vocab_size  # the padded vocab's columns are masked to -1e30
     out = {"prompt": prompt, "steps": DECODE_STEPS, "rows": DECODE_ROWS,
            "extra": {k: list(v.shape) for k, v in extra32.items()},
-           "f64_layers": f64_layers or cfg.num_layers,
            "f32_tol": f32_tol, "f64_tol": F64_TOL}
     fwd = {}
     with torch.no_grad():
         for name, dt in (("f32", "float32"), ("f64", "float64")):
-            c, p = cfg.replace(compute_dtype=dt), params
-            if callable(params):
-                p = params(dt)
-            elif dt == "float64":
-                if f64_layers:
-                    c, p = cut_depth(c, p, f64_layers)
-                p = map_tree(lambda _, t: t.double(), p)
+            c, p = build(dt)
+            c = c.replace(compute_dtype=dt)
+            if dt == "float64":
+                out["f64_layers"] = c.num_layers
             extra = {k: v.to(torch_dtype(dt)) for k, v in extra32.items()}
             full = _forward_rows(c, p, tokens, prompt, extra)[..., :V]
             rows, prefill_ms, step_ms = _prefill_decode(torch, c, p, tokens,
@@ -2279,7 +2295,7 @@ def checked_train_path(torch, path: dict, scratch: Path, seed: int,
                        run_path, name: str, *, want_version=None,
                        keep_live=False) -> tuple:
     """A train path (``path``: ``XLSTM_PATH`` or ``WHISPER_PATH``) at full
-    width and depth, checked against its replay:
+    width (``path_config``), checked against its replay:
 
       ref. ``replay_reference``: the run replayed without checkpoints, per
         checkpointed step the state's per-leaf tables (a state of many GB
@@ -2449,7 +2465,8 @@ def xlstm_train_path(torch, scratch: Path, seed: int, run_path) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    decode = decode_check(torch, path_config(XLSTM_PATH), params, seed + 5)
+    cfg = path_config(XLSTM_PATH)
+    decode = decode_check(torch, cfg, on_card(cfg, params), seed + 5)
     del params
     out["phase_s"]["decode"] = time.perf_counter() - t0
     out = {"config": {"arch": "xlstm-1.3b", "layers": XLSTM_LAYERS,
@@ -2509,7 +2526,7 @@ def recurrentgemma_step(torch, seed: int) -> dict:
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    out["decode"] = decode_check(torch, cfg, params, seed + 6)
+    out["decode"] = decode_check(torch, cfg, on_card(cfg, params), seed + 6)
     return out
 
 
@@ -2687,9 +2704,10 @@ def vision_serve(torch, seed: int) -> dict:
     del served
     gc.collect()
     torch.cuda.empty_cache()
-    out["decode"] = decode_check(torch, cfg, params, seed + 1,
+    out["decode"] = decode_check(torch, cfg,
+                                 on_card(cfg, params, F64_LAYERS), seed + 1,
                                  prompt=VISION_DECODE_PROMPT,
-                                 f64_layers=F64_LAYERS, f32_tol=STUB_F32_TOL)
+                                 f32_tol=STUB_F32_TOL)
     out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -2881,7 +2899,9 @@ def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
     continues to step ``CLONE_STEPS``: its logits and tokens must equal
     the primary's bit for bit (deterministic algorithms), and its params'
     and caches' per-leaf Fletcher tables the live ones'.  A MoE config
-    also reports its prefill's routing (``routing_stats``)."""
+    also reports its prefill's routing (``routing_stats``).  The line's
+    ``largest_leaf_rows`` is the checksum rows of the largest table the
+    state checks launch, at which phase 8 holds the kernel."""
     import gc
 
     from repro_torch.core import ModuleSpec, PipelineSpec, VelocClient
@@ -2949,8 +2969,9 @@ def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
             fut.result(timeout=600)
             drain_s = max(v for k, v in fut.results.items()
                           if k.endswith(".done_at")) - t_clone
-        clone_bytes = sum(t.numel() * t.element_size()
-                          for _, t in leaves_with_paths(clone))
+        leaf_bytes = [t.numel() * t.element_size()
+                      for _, t in leaves_with_paths(clone)]
+        clone_bytes = sum(leaf_bytes)
         release = snapshot_release(mem.samples, fut.results, clone_bytes,
                                    t_call=t_clone)
         served = pos - CLONE_PROMPT
@@ -3019,6 +3040,7 @@ def serve_clone(torch, scratch: Path, seed: int, cfg, want_params: int
            "replica_steps": got_rows.shape[1],
            "finite": bool(torch.isfinite(live_rows).all()),
            "tables_equal": True,
+           "largest_leaf_rows": -(-max(leaf_bytes) // 8192),
            "app_blocking_ms": blocking_s * 1e3, "call_ms": call_s * 1e3,
            "prefill_ms": prefill_ms,
            "decode_ms_per_step": {k: _stats(v) if v else None
@@ -3055,8 +3077,8 @@ def minicpm3_decode(torch, seed: int) -> dict:
             num_layers=MINICPM3_DECODE_LAYERS, **over)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         params = init_model(cfg, generator=gen, device="cuda")
-        out[form] = decode_check(torch, cfg, params, seed + 1,
-                                 f32_tol=STUB_F32_TOL)
+        out[form] = decode_check(torch, cfg, on_card(cfg, params),
+                                 seed + 1, f32_tol=STUB_F32_TOL)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3090,15 +3112,15 @@ def grok_decode(torch, seed: int) -> dict:
     cfg = moe_config(GROK_ARCH,
                      capacity_factor=m.num_experts / m.experts_per_token)
 
-    def params(dtype):
+    def build(dtype):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        return init_model(cfg.replace(param_dtype=dtype), generator=gen,
-                          device="cuda")
+        return cfg, init_model(cfg.replace(param_dtype=dtype),
+                               generator=gen, device="cuda")
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out = decode_check(torch, cfg, params, seed + 1, f32_tol=STUB_F32_TOL)
+    out = decode_check(torch, cfg, build, seed + 1, f32_tol=STUB_F32_TOL)
     out["capacity_factor"] = cfg.moe.capacity_factor
     out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
@@ -3404,9 +3426,10 @@ def main(argv=None) -> int:
     del live
     from repro_torch.configs import get_config
 
-    wdecode = decode_check(torch, get_config("whisper-medium"), restored,
+    wcfg = get_config("whisper-medium")
+    wdecode = decode_check(torch, wcfg, on_card(wcfg, restored, F64_LAYERS),
                            args.seed + 12, prompt=WHISPER_DECODE_PROMPT,
-                           f64_layers=F64_LAYERS, f32_tol=STUB_F32_TOL)
+                           f32_tol=STUB_F32_TOL)
     line("whisper decode", wdecode)
     del restored
     torch.cuda.empty_cache()
@@ -3472,11 +3495,15 @@ def main(argv=None) -> int:
     line("kimi serve", kimi)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    regions = {"xlstm": xlstm["largest_region_rows"],
+               "whisper": whisper["largest_region_rows"],
+               "serve_clone": clone["largest_leaf_rows"],
+               "minicpm3": mclone["largest_leaf_rows"],
+               "grok": gclone["largest_leaf_rows"]}
     stats = check_kernels(torch, gen, shard_rows=path["shard_rows"],
                           xor_words=path["xor_words"],
                           train_rows=-(-train["shard_bytes"] // 8192),
-                          xlstm_rows=xlstm["largest_region_rows"],
-                          whisper_rows=whisper["largest_region_rows"])
+                          regions=regions)
     stats.update(check_delta_kernels(
         torch, gen, big_words=delta["big_words"], step_words=step_words,
         dirty_rows=delta["dirty_rows"], chunk=delta["chunk_words"]))
@@ -3511,7 +3538,7 @@ def main(argv=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s.get("library_ms"),
             "wrapper_ms": s.get("wrapper_ms"), "shape": s["shape"],
-            "xlstm": s.get("xlstm"), "whisper": s.get("whisper")})
+            **{p: s.get(p) for p in regions}})
     line("phase seconds", dict(phase_s, kernel_checks=time.perf_counter()
                                - last[0]))
     print(json.dumps({"kernels": kernels}))

@@ -71,13 +71,8 @@ class TrainRun:
     state: Any = None
 
 
-def build(arch: str, smoke: bool, seq_len: int, batch: int,
-          num_layers: Optional[int] = None):
-    """The arch's config (its smoke size with ``smoke``; cut to its first
-    ``num_layers`` layers at full width when given) and the batch shape."""
+def build(arch: str, smoke: bool, seq_len: int, batch: int):
     cfg = smoke_config(arch) if smoke else get_config(arch)
-    if num_layers is not None:
-        cfg = cfg.replace(num_layers=num_layers)
     shape = ShapeCfg("cli", seq_len, batch, "train")
     return cfg, shape
 
@@ -87,8 +82,6 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="veloc-demo-100m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config of the arch")
-    ap.add_argument("--num-layers", type=int, default=None,
-                    help="cut the arch to N layers at full width")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and the kernels run (cpu: the "
                          "kernels' plain versions)")
@@ -180,8 +173,7 @@ def main(argv=None) -> TrainRun:
     args = parse_args(argv)
     device = check_device(args.device)
     ops.set_device(device.type)
-    cfg, shape = build(args.arch, args.smoke, args.seq_len, args.batch,
-                       args.num_layers)
+    cfg, shape = build(args.arch, args.smoke, args.seq_len, args.batch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     stream = SyntheticStream(cfg, shape, seed=1234, device=device)
 

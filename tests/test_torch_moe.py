@@ -510,17 +510,17 @@ def test_moe_serving_state_crosses_packages(tmp_path, arch, writer, reader):
                                       w.reshape(-1).view(np.uint8), name)
 
 
-@pytest.mark.parametrize("layers", [None, 1])
-def test_trainer_runs_kimi_smoke(tmp_path, layers):
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "grok-1-314b"])
+def test_trainer_runs_moe_smoke(tmp_path, arch):
     """``launch/train.py --arch kimi-k2-1t-a32b --smoke --steps 2`` on the
-    CPU, and the same cut to one layer (``--num-layers 1``): two finite
-    losses, the optimizer at step 2, the router still in float32."""
-    cut = [] if layers is None else ["--num-layers", str(layers)]
-    run = trainer.main(["--arch", "kimi-k2-1t-a32b", "--smoke", "--device",
-                        "cpu", "--steps", "2", "--scratch", str(tmp_path)]
-                       + cut)
+    CPU, and the same for grok-1-314b: two finite losses, the optimizer at
+    step 2, the router still in float32."""
+    run = trainer.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--steps", "2", "--scratch", str(tmp_path)])
     assert len(run.losses) == 2 and np.isfinite(run.losses).all()
     assert int(run.state["opt"]["step"]) == 2
     ffn = run.state["params"]["blocks"][0]["ffn"]
     assert ffn["router"].dtype == torch.float32
-    assert ffn["w_gate"].shape == (layers or 2, 8, 64, 64)
+    cfg = tbase.smoke_config(arch)
+    assert ffn["w_gate"].shape == (cfg.num_layers, cfg.moe.num_experts,
+                                   cfg.d_model, cfg.moe.d_ff)
