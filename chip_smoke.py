@@ -166,17 +166,21 @@ any failure (the script then exits non-zero):
      leaves; the XOR group's words in the aligned row layout of
      ``ops.xor_reduce``; the largest leaf's and the 0-d ``opt/step`` leaf's
      words in 64 KiB rows for the block hash and its fused diff; the dirty
-     rows of a 1% version of the largest leaf for the gather; the largest
-     leaf's values for quantize and dequantize, and ragged, misaligned,
-     NaN, ±inf, all-zero and f16 blocks; the ring's stripe for the XOR
-     pair, and ragged and misaligned words), with the kernel's median time
-     from CUDA events (each call's inputs evicted from L2 first, no wait
-     for the host; ``_cuda_ms``), its bound, the plain version's time and,
-     where one PyTorch call computes the same function, that call's time;
-     the gather kernel alone on an index already on the card, beside
-     ``torch.index_select`` on that index and the whole wrapper (host
-     checks and the index copy included); and the host-to-device copy of a
-     shard-sized buffer next to the checksum kernel that digests it;
+     rows of a 1% and of a 10% version of the largest leaf for the gather,
+     and index lists on either side of each capacity of its launch
+     parameters, the longest split into several launches (counted); the
+     largest leaf's values for quantize and dequantize, and ragged,
+     misaligned, NaN, ±inf, all-zero and f16 blocks; the ring's stripe for
+     the XOR pair, and ragged, block-multiple and misaligned words), with
+     the kernel's median time from CUDA events (each call's inputs evicted
+     from L2 first, no wait for the host; ``_cuda_ms``), its bound, the
+     plain version's time and, where one PyTorch call computes the same
+     function, that call's time; for the gather at both shapes also the
+     whole call on the host clock until the device is done (``_host_ms``:
+     host checks, launch, kernel, wait) beside ``torch.index_select`` with
+     its index copied from the host, timed the same way; and the
+     host-to-device copy of a shard-sized buffer next to the checksum
+     kernel that digests it;
   9. a ``phase seconds {...}`` line (for each JSON line above, the seconds
      since the line before it; and the kernel checks' seconds), then a
      ``{"kernels": [...]}`` line: each kernel's launches on its path and
@@ -243,6 +247,34 @@ def _cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def _host_ms(torch, fn, reps: int, warmup: int = 2, wait: bool = True,
+             flush: bool = True) -> float:
+    """Milliseconds of one call of ``fn`` as its caller waits for it: the
+    host clock from the call until ``torch.cuda.synchronize()`` returns
+    (host work, launches, the device's work and the wait), the median over
+    ``reps`` calls, each made on an idle device, after a read of a 256 MiB
+    buffer that evicts L2 unless ``flush`` is false (then the host thread
+    has not just waited ~0.1 ms for the device).  With ``wait=False`` the
+    clock stops when ``fn`` returns: its host work alone (and any wait
+    inside it)."""
+    buf = (torch.empty(L2_FLUSH_WORDS, dtype=torch.int32, device="cuda")
+           if flush else None)
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        if buf is not None:
+            torch.sum(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if wait:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -369,13 +401,17 @@ def _check_exact(torch, what: str, got, want) -> int:
 
 
 def check_delta_kernels(torch, gen, big_words: int, step_words: int,
-                        dirty_rows: int, chunk: int) -> dict:
+                        dirty_rows: int, dirty_rows_10: int,
+                        chunk: int) -> dict:
     """Phase 8 for the delta path's kernels: block hash, fused hash-diff
     and row gather against their plain versions, bit-exact, at small,
     ragged and misaligned shapes and at the path's own: the largest leaf's
     ``big_words`` words and the 0-d ``opt/step`` leaf's ``step_words`` in
-    rows of ``chunk`` words, and ``dirty_rows`` gathered rows (a 1%
-    version of the largest leaf)."""
+    rows of ``chunk`` words, and ``dirty_rows`` and ``dirty_rows_10``
+    gathered rows of the largest leaf (its 1 % and 10 % versions).  The
+    gather is also held at index lists on either side of each capacity of
+    its launch parameters and at one longer than the largest, which the
+    wrapper splits into several launches."""
     from repro_torch.kernels import blockhash as bh
     from repro_torch.kernels import gather as ga
     from repro_torch.kernels import ref
@@ -404,12 +440,18 @@ def check_delta_kernels(torch, gen, big_words: int, step_words: int,
         errs["blockhash_diff"].append(_check_exact(
             torch, f"blockhash_diff {what}", bh.blockhash_diff(x, prev, c),
             ref.blockhash_diff_ref(bh._padded(x, c, rows), prev)))
-        k = max(1, min(rows, dirty_rows if n == big_words else 3))
-        idx = torch.randperm(rows, generator=gen, device="cuda")[:k].cpu()
-        idx[-1] = rows - 1  # the (possibly ragged) last row
-        errs["gather_rows"].append(_check_exact(
-            torch, f"gather_rows {what} x {k}", ga.gather_rows(x, idx, c),
-            ref.gather_rows_ref(bh._padded(x, c, rows), idx.cuda())))
+        gathers = ((("gather_rows", dirty_rows), ("gather_10", dirty_rows_10))
+                   if n == big_words else ((None, 3),))
+        for key, k in gathers:
+            k = max(1, min(rows, k))
+            idx = torch.randperm(rows, generator=gen, device="cuda")[:k].cpu()
+            idx[-1] = rows - 1  # the (possibly ragged) last row
+            errs["gather_rows"].append(_check_exact(
+                torch, f"gather_rows {what} x {k}",
+                ga.gather_rows(x, idx, c),
+                ref.gather_rows_ref(bh._padded(x, c, rows), idx.cuda())))
+            if key is not None:
+                stats[key] = _time_gather(torch, x, c, idx, what)
         if off or (n, c) not in ((big_words, chunk), (step_words, chunk)):
             continue
         nbytes = 4 * n
@@ -431,41 +473,102 @@ def check_delta_kernels(torch, gen, big_words: int, step_words: int,
             stats["blockhash_diff"] = dict(
                 ms=diff_ms, plain_ms=diff_plain, bound_ms=diff_bound,
                 shape=[rows, c])
-            # the gather at a 1% version's dirty rows: the kernel alone on
-            # an index already on the card, beside the one PyTorch call that
-            # computes the same rows (full rows only) on that index, and the
-            # whole wrapper (host checks, index copy, launch)
-            dev_idx = idx.cuda().to(torch.int32)
-            g_out = torch.empty((k, c), dtype=torch.int32, device="cuda")
-            g_ms = _cuda_ms(torch, lambda: ga.launch(x, c, dev_idx, g_out),
-                            reps=20)
-            g_wrap = _cuda_ms(torch, lambda: ga.gather_rows(x, idx, c),
-                              reps=20)
-            g_plain = _cuda_ms(torch, lambda: ref.gather_rows_ref(
-                bh._padded(x, c, rows), dev_idx), reps=5)
-            full = x[:(n // c) * c].view(n // c, c)
-            lib_idx = dev_idx.clamp(max=n // c - 1)
-            lib_ms = _cuda_ms(torch, lambda: torch.index_select(
-                full, 0, lib_idx), reps=20)
-            g_bound = _bound_ms(2 * k * c * 4 + 4 * k)
-            print(f"gather_rows {what} x {k} rows: bit-exact; kernel "
-                  f"{g_ms:.4f} ms, whole wrapper {g_wrap:.4f} ms, bound "
-                  f"{g_bound:.6f} ms, plain {g_plain:.4f} ms, "
-                  f"torch.index_select {lib_ms:.4f} ms")
-            stats["gather_rows"] = dict(ms=g_ms, wrapper_ms=g_wrap,
-                                        plain_ms=g_plain, bound_ms=g_bound,
-                                        library_ms=lib_ms, shape=[k, c])
         del x, want, prev
+    # index lists on either side of each capacity of the launch parameters
+    # (64, 1024, MAX_INDICES), repeated indices, and lists longer than one
+    # launch takes, split by the wrapper: its launches counted
+    cap = ga.MAX_INDICES
+    for rows, c in ((4096, 64), (3001, 10)):  # 16-byte and word copies
+        x = _random_words(torch, gen, (rows * c - 5,))  # a ragged last row
+        for k in (1, 64, 65, 1024, 1025, cap, cap + 1, 2 * cap + 5):
+            idx = torch.randint(0, rows, (k,), generator=gen, device="cuda")
+            idx[-1] = rows - 1
+            idx = idx.cpu()
+            before = ga.LAUNCHES.value
+            got = ga.gather_rows(x, idx, c)
+            launches = ga.LAUNCHES.value - before
+            if launches != -(-k // cap):
+                raise AssertionError(f"gather_rows of {k} indices: "
+                                     f"{launches} launches, not "
+                                     f"{-(-k // cap)}")
+            errs["gather_rows"].append(_check_exact(
+                torch, f"gather_rows ({rows} rows of {c}) x {k}", got,
+                ref.gather_rows_ref(bh._padded(x, c, rows), idx.cuda())))
+        print(f"gather_rows ({rows} rows of {c} words, ragged): bit-exact "
+              f"at 1-{2 * cap + 5} indices, lists over {cap} split into "
+              f"launches of at most {cap}")
+        del x
+    stats["gather_rows"]["at_10_percent"] = stats.pop("gather_10")
     for name, e in errs.items():
         stats[name]["max_abs_err"] = max(e)
-    try:  # indices outside the rows are refused on the host
-        ga.gather_rows(_random_words(torch, gen, (10,)), [3], 4)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("gather_rows launched with an index past the "
-                             "last row")
+    for bad in ([3], [-1], [0.5]):  # refused on the host, nothing launched
+        before = ga.LAUNCHES.value
+        try:
+            ga.gather_rows(_random_words(torch, gen, (10,)), bad, 4)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"gather_rows launched with index {bad}")
+        if ga.LAUNCHES.value != before:
+            raise AssertionError("a refused gather_rows launched")
     return stats
+
+
+def _time_gather(torch, x, c: int, idx, what: str) -> dict:
+    """The gather at one of the delta path's shapes: ``idx`` (a CPU tensor)
+    rows of ``c`` words of the flat ``x``.  The kernel alone on host int32
+    indices (device time between CUDA events), beside an empty kernel
+    timed the same way; the whole call as the capture makes it, sorted
+    int64 numpy indices, on the host clock until the device is done
+    (``_host_ms``; an empty synchronize's share and the call's host work
+    alone printed beside it); the bound; the plain version;
+    ``torch.index_select`` on an index already on the card; and
+    ``index_select`` with its index copied from the host in the same timed
+    call, on the host clock.  The host-clock calls run without the L2
+    eviction before each: host work dominates them, and a wait on the
+    device just before slows the host's next tens of microseconds
+    (``kernel_ab.py`` times both)."""
+    import numpy as np
+
+    from repro_torch.kernels import blockhash as bh
+    from repro_torch.kernels import gather as ga
+    from repro_torch.kernels import ref
+
+    n, k = x.shape[0], idx.shape[0]
+    rows = -(-n // c)
+    host_idx = np.sort(idx.numpy().astype(np.int64))  # as the capture has it
+    idx32 = np.ascontiguousarray(idx.numpy(), dtype=np.int32)
+    dev_idx = idx.cuda()
+    out = torch.empty((k, c), dtype=torch.int32, device="cuda")
+    ms = _cuda_ms(torch, lambda: ga.launch(x, c, idx32, out), reps=20)
+    empty_ms = _cuda_ms(torch, lambda: torch.cuda._sleep(0), reps=20)
+    call_ms = _host_ms(torch, lambda: ga.gather_rows(x, host_idx, c),
+                       reps=50, flush=False)
+    host_ms = _host_ms(torch, lambda: ga.gather_rows(x, host_idx, c),
+                       reps=50, wait=False, flush=False)
+    sync_ms = _host_ms(torch, lambda: None, reps=50, flush=False)
+    plain_ms = _cuda_ms(torch, lambda: ref.gather_rows_ref(
+        bh._padded(x, c, rows), dev_idx), reps=5)
+    full = x[:(n // c) * c].view(n // c, c)  # index_select takes full rows
+    lib_idx = dev_idx.clamp(max=n // c - 1)
+    lib_ms = _cuda_ms(torch, lambda: torch.index_select(full, 0, lib_idx),
+                      reps=20)
+    cpu_idx = torch.from_numpy(host_idx).clamp(max=n // c - 1)
+    lib_copy_ms = _host_ms(torch, lambda: torch.index_select(
+        full, 0, cpu_idx.to("cuda")), reps=50, flush=False)
+    bound = _bound_ms(2 * k * c * 4 + 4 * k)
+    print(f"gather_rows {what} x {k} rows: bit-exact; kernel alone "
+          f"{ms:.4f} ms (an empty kernel {empty_ms:.4f}), bound "
+          f"{bound:.6f} ms ({bound / ms:.1%} of the kernel's time), whole "
+          f"call {call_ms:.4f} ms (host clock; its host work alone "
+          f"{host_ms:.4f}, an empty synchronize {sync_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms (index on "
+          f"the card), with the index copied from the host {lib_copy_ms:.4f} "
+          f"ms (host clock)")
+    return dict(ms=ms, empty_kernel_ms=empty_ms, call_ms=call_ms,
+                call_host_ms=host_ms, sync_ms=sync_ms, plain_ms=plain_ms,
+                bound_ms=bound, library_ms=lib_ms,
+                library_with_index_copy_ms=lib_copy_ms, shape=[k, c])
 
 
 def _deal(leaves, nranks):
@@ -842,6 +945,7 @@ def delta_path(torch, leaves, ranks, load, scratch: Path, seed: int) -> dict:
         print(f"node loss: rank 2 rebuilt v5 from XOR parity plus its chain "
               f"in {parity_s:.3f} s, equal")
         big = max((t for _, t in leaves), key=lambda t: t.numel())
+        big_rows = -(-big.numel() * big.element_size() // chunk_bytes)
         stats = dict(clients[0].device_capture.stats)
     finally:
         for c in clients:
@@ -850,8 +954,10 @@ def delta_path(torch, leaves, ranks, load, scratch: Path, seed: int) -> dict:
                 compact_s=compact_s, compact_restart_s=compact_restart_s,
                 parity_s=parity_s, capture_stats_rank0=stats,
                 big_words=big.numel() * big.element_size() // 4,
-                dirty_rows=max(1, -(-big.numel() * big.element_size()
-                                    // chunk_bytes) // 100),
+                # the largest leaf's dirty rows at 1 % and 10 %, as
+                # _bump_chunks picks them
+                dirty_rows=max(1, big_rows // 100),
+                dirty_rows_10=max(1, big_rows // 10),
                 chunk_words=chunk_bytes // 4)
 
 
@@ -3195,7 +3301,9 @@ def check_q8_ring_kernels(torch, gen, big_n: int, stripe_words: int) -> dict:
     xor_pair against their plain versions, bit for bit, at small, ragged
     and misaligned shapes, at NaN, ±inf, all-zero and f16 blocks, and at
     the paths' own: the largest leaf's ``big_n`` values and the ring's
-    stripe of ``stripe_words`` words."""
+    stripe of ``stripe_words`` words; xor_pair also at a whole number of
+    its blocks and at a length that ends in a ragged block and a scalar
+    tail."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
@@ -3249,8 +3357,10 @@ def check_q8_ring_kernels(torch, gen, big_n: int, stripe_words: int) -> dict:
     for name in ("quantize", "dequantize"):
         stats[name]["max_abs_err"] = max(errs[name])
 
+    span = xp.PAIR_BLOCK_WORDS  # words one block of the kernel covers
     for n, off in ((1, False), (1001, False), (4099, False),
-                   (stripe_words, False), (4099, True)):
+                   (stripe_words, False), (4099, True), (2 * span, False),
+                   (3 * span + 4 * 37 + 3, False)):
         base_a = _random_words(torch, gen, (n + 1,))
         base_b = _random_words(torch, gen, (n + 1,))
         a, b = (base_a[1:], base_b[1:]) if off else (base_a[:n], base_b[:n])
@@ -3506,7 +3616,8 @@ def main(argv=None) -> int:
                           regions=regions)
     stats.update(check_delta_kernels(
         torch, gen, big_words=delta["big_words"], step_words=step_words,
-        dirty_rows=delta["dirty_rows"], chunk=delta["chunk_words"]))
+        dirty_rows=delta["dirty_rows"], dirty_rows_10=delta["dirty_rows_10"],
+        chunk=delta["chunk_words"]))
     stats.update(check_q8_ring_kernels(
         torch, gen, big_n=big_n, stripe_words=ring["stripe_words"]))
 
@@ -3537,7 +3648,9 @@ def main(argv=None) -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s.get("library_ms"),
-            "wrapper_ms": s.get("wrapper_ms"), "shape": s["shape"],
+            "call_ms": s.get("call_ms"),
+            "library_with_index_copy_ms": s.get("library_with_index_copy_ms"),
+            "at_10_percent": s.get("at_10_percent"), "shape": s["shape"],
             **{p: s.get(p) for p in regions}})
     line("phase seconds", dict(phase_s, kernel_checks=time.perf_counter()
                                - last[0]))

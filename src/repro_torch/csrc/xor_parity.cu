@@ -10,13 +10,26 @@
 // Bound: device-memory bytes.  xor_reduce reads 4*K*N bytes and writes 4*N,
 // xor_pair reads 8*N and writes 4*N, with one XOR per word read.
 //
-// Design: the TPU kernels stream 1 MiB tiles of all K rows through VMEM in
-// grid order; here a grid-stride loop spreads the word axis over every SM,
-// and each thread XORs the K rows of one 16-byte vector in registers, so the
-// K loads of an iteration are independent and in flight together; xor_pair
-// is the same loop over two separate rows.  The caller lays the rows out
-// 16-byte aligned (ld % 4 == 0; aligned a, b, out) and misaligned ones are
-// refused; the last N % 4 words are a scalar tail.
+// xor_reduce: the TPU kernel streams 1 MiB tiles of all K rows through VMEM
+// in grid order; here a grid-stride loop spreads the word axis over every
+// SM, and each thread XORs the K rows of one 16-byte vector in registers,
+// so the K loads of an iteration are independent and in flight together.
+//
+// xor_pair: one pass and no loop.  Each thread loads one 16-byte vector
+// of a and one of b, both in flight before its one store (neighbouring
+// threads on neighbouring addresses), in blocks of 128 threads: the grid is
+// ceil(N / 512) blocks (40,583 at the ring's stripe of 20,778,326 words),
+// where a grid-stride loop capped at a few waves walked each thread ~10
+// times, one load pair and store at a time.  The shape was chosen on the
+// card at the ring's stripe among variants of 1 to 8 vectors a thread, 64
+// to 512 threads, plain, __ldg, evict-first (__ldcs), L2-only (__ldcg) and
+// L1::no_allocate loads, and plain, streaming and L2-only stores: one
+// vector a thread with __ldg loads and plain stores was the fastest; the
+// evict-first and no-allocate loads, and 4 or 8 vectors a thread, were
+// slower.  The last block also takes the last N % 4 words.
+//
+// The caller lays the rows out 16-byte aligned (ld % 4 == 0; aligned a, b,
+// out) and misaligned ones are refused.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,24 +68,23 @@ xor_reduce_vec_kernel(const uint32_t* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kPairThreads = 128;  // one 16-byte vector of a and of b each
+
+__global__ void __launch_bounds__(kPairThreads)
 xor_pair_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                 uint32_t* __restrict__ out, long long n) {
   const long long nvec = n >> 2;
-  const long long tid = blockIdx.x * static_cast<long long>(kThreads)
-                        + threadIdx.x;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  const uint4* av = reinterpret_cast<const uint4*>(a);
-  const uint4* bv = reinterpret_cast<const uint4*>(b);
-  uint4* ov = reinterpret_cast<uint4*>(out);
-#pragma unroll 4
-  for (long long v = tid; v < nvec; v += step) {
-    const uint4 p = __ldg(av + v);
-    const uint4 q = __ldg(bv + v);
-    ov[v] = make_uint4(p.x ^ q.x, p.y ^ q.y, p.z ^ q.z, p.w ^ q.w);
+  const long long v =
+      blockIdx.x * static_cast<long long>(kPairThreads) + threadIdx.x;
+  if (v < nvec) {
+    const uint4 p = __ldg(reinterpret_cast<const uint4*>(a) + v);
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(b) + v);
+    reinterpret_cast<uint4*>(out)[v] =
+        make_uint4(p.x ^ q.x, p.y ^ q.y, p.z ^ q.z, p.w ^ q.w);
   }
-  for (long long i = (nvec << 2) + tid; i < n; i += step) {
-    out[i] = __ldg(a + i) ^ __ldg(b + i);
+  if (blockIdx.x + 1 == gridDim.x) {  // the last block: the last n % 4 words
+    const long long w = (nvec << 2) + threadIdx.x;
+    if (w < n) out[w] = __ldg(a + w) ^ __ldg(b + w);
   }
 }
 
@@ -110,7 +122,10 @@ extern "C" int veloc_xor_pair(const void* a, const void* b, void* out,
       || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  xor_pair_kernel<<<static_cast<unsigned int>(grid_for(n)), kThreads, 0,
+  const long long nvec = n >> 2;
+  const long long blocks =
+      nvec > 0 ? (nvec + kPairThreads - 1) / kPairThreads : 1;
+  xor_pair_kernel<<<static_cast<unsigned int>(blocks), kPairThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(out), n);

@@ -5,11 +5,17 @@ Replaces the TPU kernel ``gather_rows_pallas``
 ``chunk`` uint32 words, so that a delta capture copies only the dirty chunks
 of a leaf to the host.  The words are a flat buffer whose last row may be
 ragged; a gathered ragged row is zero-filled past the buffer's end.  The
-indices come from the host: the wrapper checks them there and refuses any
-outside ``[0, rows)``.  A CUDA tensor goes through the kernel; a CPU tensor
-goes through the plain version, ``ref.gather_rows_ref``.  The TPU wrapper's
-padding of the index vector to a power of two (which bounds jit retraces)
-is not carried over: the port has no jit, so exactly ``len(idx)`` rows move.
+indices come from the host, and they stay there: the wrapper checks them
+and refuses any outside ``[0, rows)``, then hands the kernel's C entry point
+a host pointer to them, which copies them into the launch parameters (the
+TPU's scalar prefetch becomes Hopper's parameter space).  No index tensor
+is made on the card and nothing is copied from host to device.  One launch
+takes at most ``MAX_INDICES`` indices; ``launch_groups`` cuts a longer list
+into launches.  A CUDA tensor goes through the kernel; a CPU tensor goes
+through the plain version, ``ref.gather_rows_ref``, over the same groups.
+The TPU wrapper's padding of the index vector to a power of two (which
+bounds jit retraces) is not carried over: the port has no jit, so exactly
+``len(idx)`` rows move.
 """
 from __future__ import annotations
 
@@ -25,10 +31,20 @@ from repro_torch.kernels.ref import gather_rows_ref
 #: launches of the CUDA kernel (the plain CPU version does not count)
 LAUNCHES = _build.LaunchCount("gather_rows")
 
-#: int veloc_gather_rows(x, n_words, chunk, idx, n_out, out, stream)
+#: indices one launch carries in its parameters (``kMaxIndices`` in
+#: csrc/gather_rows.cu)
+MAX_INDICES = 8000
+
+#: int veloc_gather_rows(x, n_words, chunk, idx (host), n_out, out, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p]
+
+
+def launch_groups(n: int, cap: int = MAX_INDICES) -> list[tuple[int, int]]:
+    """``[start, stop)`` of each launch that gathers ``n`` indices, at most
+    ``cap`` a launch, in order."""
+    return [(s, min(s + cap, n)) for s in range(0, n, cap)]
 
 
 def gather_rows(x: torch.Tensor, idx, chunk: int = None) -> torch.Tensor:
@@ -45,29 +61,31 @@ def gather_rows(x: torch.Tensor, idx, chunk: int = None) -> torch.Tensor:
                      or int(idx.max()) >= rows):
         raise ValueError(f"gather_rows: indices must be integers in "
                          f"[0, {rows})")
-    idx = torch.from_numpy(idx.astype(np.int32))
-    if x.device.type == "cpu":
-        return gather_rows_ref(_padded(x, chunk, rows), idx)
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
     out = torch.empty((idx.shape[0], chunk), dtype=torch.int32,
                       device=x.device)
-    if idx.shape[0] == 0:
+    groups = launch_groups(idx.shape[0])
+    if x.device.type == "cpu":
+        padded = _padded(x, chunk, rows)
+        for s, e in groups:
+            out[s:e] = gather_rows_ref(padded, torch.from_numpy(idx[s:e]))
         return out
     with torch.cuda.device(x.device):
-        # on the current stream, before the launch
-        launch(x, chunk, idx.to(x.device), out)
+        for s, e in groups:  # on the current stream
+            launch(x, chunk, idx[s:e], out[s:e])
     return out
 
 
-def launch(x: torch.Tensor, chunk: int, dev_idx: torch.Tensor,
+def launch(x: torch.Tensor, chunk: int, idx: np.ndarray,
            out: torch.Tensor) -> None:
-    """The kernel alone: flat CUDA words ``x``, int32 row indices
-    ``dev_idx`` already on x's device and checked to lie in ``[0, rows)``,
-    and ``out`` of shape (len(dev_idx), chunk) int32 on that device.  What
-    ``gather_rows`` costs beyond this call is its host work: the index
-    checks and the copy of the indices to the card."""
+    """The kernel alone: flat CUDA words ``x``, 1 to ``MAX_INDICES`` int32
+    row indices ``idx`` in a contiguous host array, checked to lie in
+    ``[0, rows)``, and ``out`` of shape (len(idx), chunk) int32 on x's
+    device.  What ``gather_rows`` costs beyond this call is its host work:
+    the index checks and the split into launches."""
     fn = _build.function("gather_rows", "veloc_gather_rows", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), x.shape[0], chunk, dev_idx.data_ptr(),
-            dev_idx.shape[0], out.data_ptr(), stream)
+    rc = fn(x.data_ptr(), x.shape[0], chunk, idx.ctypes.data, idx.shape[0],
+            out.data_ptr(), stream)
     _build.check(rc, "gather_rows kernel launch")
     LAUNCHES.add()

@@ -6,9 +6,10 @@
 over uint32 words — VELOC's L2 XOR-group encode, and the reconstruct of a
 lost member from the survivors and the parity.  ``xor_pair`` replaces
 ``xor_pair_pallas``: ``a ^ b``, the combiner of the device-level L2 ring
-(``core/partner.py``).  A CUDA tensor goes through the kernel (grid-stride,
-16-byte loads; see the source's note); a CPU tensor goes through the plain
-version in ``ref.py``.  On the card the rows must be 16-byte aligned
+(``core/partner.py``).  A CUDA tensor goes through the kernel (16-byte
+loads; ``xor_reduce`` in a grid-stride loop, ``xor_pair`` in one pass of
+``PAIR_BLOCK_WORDS`` words a block; see the source's note); a CPU tensor
+goes through the plain version in ``ref.py``.  On the card the rows must be 16-byte aligned
 (``x.stride(0) % 4 == 0``, aligned base) for the kernel's vector loads; they
 may be padded (``x.stride(0) >= N``), so the caller aligns them without
 padding N itself (``ops.xor_reduce`` and ``ops.xor_pair`` do).
@@ -25,6 +26,10 @@ from repro_torch.kernels.ref import xor_pair_ref, xor_reduce_ref
 #: launches of the CUDA kernels (the plain CPU versions do not count)
 LAUNCHES = _build.LaunchCount("xor_reduce")
 PAIR_LAUNCHES = _build.LaunchCount("xor_pair")
+
+#: words one block of the XOR-pair kernel covers (``kPairThreads`` 16-byte
+#: vectors in csrc/xor_parity.cu); the last block takes the ragged rest
+PAIR_BLOCK_WORDS = 512
 
 
 #: int veloc_xor_reduce(x, out, k, n, ld, stream)
