@@ -526,8 +526,7 @@ def _time_gather(torch, x, c: int, idx, what: str) -> dict:
     ``index_select`` with its index copied from the host in the same timed
     call, on the host clock.  The host-clock calls run without the L2
     eviction before each: host work dominates them, and a wait on the
-    device just before slows the host's next tens of microseconds
-    (``kernel_ab.py`` times both)."""
+    device just before slows the host's next tens of microseconds."""
     import numpy as np
 
     from repro_torch.kernels import blockhash as bh

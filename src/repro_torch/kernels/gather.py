@@ -12,7 +12,7 @@ TPU's scalar prefetch becomes Hopper's parameter space).  No index tensor
 is made on the card and nothing is copied from host to device.  One launch
 takes at most ``MAX_INDICES`` indices; ``launch_groups`` cuts a longer list
 into launches.  A CUDA tensor goes through the kernel; a CPU tensor goes
-through the plain version, ``ref.gather_rows_ref``, over the same groups.
+through the plain version, ``ref.gather_rows_ref``, in one call.
 The TPU wrapper's padding of the index vector to a power of two (which
 bounds jit retraces) is not carried over: the port has no jit, so exactly
 ``len(idx)`` rows move.
@@ -62,16 +62,12 @@ def gather_rows(x: torch.Tensor, idx, chunk: int = None) -> torch.Tensor:
         raise ValueError(f"gather_rows: indices must be integers in "
                          f"[0, {rows})")
     idx = np.ascontiguousarray(idx, dtype=np.int32)
+    if x.device.type == "cpu":
+        return gather_rows_ref(_padded(x, chunk, rows), torch.from_numpy(idx))
     out = torch.empty((idx.shape[0], chunk), dtype=torch.int32,
                       device=x.device)
-    groups = launch_groups(idx.shape[0])
-    if x.device.type == "cpu":
-        padded = _padded(x, chunk, rows)
-        for s, e in groups:
-            out[s:e] = gather_rows_ref(padded, torch.from_numpy(idx[s:e]))
-        return out
     with torch.cuda.device(x.device):
-        for s, e in groups:  # on the current stream
+        for s, e in launch_groups(idx.shape[0]):  # on the current stream
             launch(x, chunk, idx[s:e], out[s:e])
     return out
 

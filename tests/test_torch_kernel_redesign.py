@@ -4,17 +4,11 @@ package (Pallas in interpret mode, as its own tests run it).
 
 The gather's wrapper cuts an index list into launches of at most
 ``gather.MAX_INDICES`` (the capacity of the kernel's parameter struct);
-the plain version runs over the same groups, so a list longer than one
-launch is gathered group by group here too.  The XOR pair's plain version
+the plain gathers over those groups, concatenated, equal the Pallas
+gather of the whole list, as the launches must on the card, and the
+wrapper's CPU path, one plain gather, equals it too.  The XOR pair's plain version
 is held at lengths on either side of the kernel's block span.  The CUDA
-kernels themselves run only on the card (``chip_smoke.py`` phase 8, and
-``kernel_ab.py``, which times two checkouts of them in turns); here that
-script is held to the port's rules."""
-import ast
-import os
-import subprocess
-import sys
-
+kernels themselves run only on the card (``chip_smoke.py`` phase 8)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +23,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import xor_parity as txp
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAP = tga.MAX_INDICES
 LENGTHS = [0, 1, CAP, CAP + 1, 3 * CAP + 5]
 SPAN = txp.PAIR_BLOCK_WORDS
@@ -127,24 +120,24 @@ def test_xor_pair_around_the_block_span_matches_jax(n):
     np.testing.assert_array_equal(want, np.asarray(jops.xor_pair(a, b)))
 
 
-def test_kernel_ab_imports_neither_jax_nor_repro():
-    path = os.path.join(REPO, "kernel_ab.py")
-    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
-    roots = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            roots.add(node.module.split(".")[0])
-    assert "repro_torch" in roots
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
-
-
-def test_kernel_ab_without_gpu_runs_nothing(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the script would run")
-    r = subprocess.run([sys.executable, os.path.join(REPO, "kernel_ab.py"),
-                        "--other", str(tmp_path)], capture_output=True,
-                       text=True, timeout=120, cwd=tmp_path)
-    assert r.returncode == 2, r.stdout + r.stderr
-    assert r.stdout == ""
+@pytest.mark.parametrize("form", ["list", "int64-sorted", "int32",
+                                  "cpu-tensor"])
+def test_gather_takes_every_host_index_form(form):
+    """The capture passes sorted int64 numpy indices; a list, int32 numpy
+    and a CPU tensor gather the same rows, equal to Pallas."""
+    chunk, rows = 8, 20
+    words = np.random.default_rng(7).integers(
+        0, 2**32, size=rows * chunk - 5, dtype=np.uint32)  # a ragged row
+    padded = np.zeros(rows * chunk, np.uint32)
+    padded[:words.size] = words
+    idx = np.sort(_indices(9, rows, seed=8))
+    want = np.asarray(gather_rows_pallas(
+        jnp.asarray(padded.reshape(rows, chunk)),
+        jnp.asarray(idx.astype(np.int32)), interpret=True))
+    given = {"list": [int(i) for i in idx], "int64-sorted": idx,
+             "int32": idx.astype(np.int32),
+             "cpu-tensor": torch.from_numpy(idx)}[form]
+    got = tga.gather_rows(torch.from_numpy(words.view(np.int32)), given,
+                          chunk)
+    assert got.shape == (idx.size, chunk) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
