@@ -77,6 +77,19 @@ any failure (the script then exits non-zero):
      {...}`` line sets (d) beside (a) (step times, overhead, the loop's
      host time in ``tick`` per step, drain) and holds the GRU on the card
      against its plain CPU version on (d)'s step times (``gru_gate_check``);
+  7a. the sharded state path (``sharded_path``): a one-rank NCCL group
+     and ``make_host_mesh(1, 1)`` on the card; veloc-demo-100m at full
+     width with ``fsdp=True``, its train state carried onto the mesh as
+     DTensors by ``resolve_tree(train_state_specs(cfg))`` (the count of
+     leaves per placement printed); batch 8 x 256 from
+     ``SyntheticStream(mesh=)``; with deterministic algorithms, 3 sharded
+     and 3 plain steps from one state, every leaf and loss bit-equal; v1 of
+     the sharded state through the default sync pipeline and
+     ``restart_latest(shardings=)``: DTensors on the same mesh with the same
+     placements, bit-equal; the regions and external-tier files
+     byte-identical to the plain state's checkpoint; a ``sharded path
+     {...}`` line (step times, checkpoint blocking, restore, the phase's
+     seconds); the group destroyed after;
   7b. the interval optimizer (``interval_check``): ``MLIntervalOptimizer``
      fitted on the card and on the CPU from the same parameters, their
      predictions within ``INTERVAL_ABS_TOL``, and an ``interval optimizer
@@ -1665,6 +1678,175 @@ def train_path(torch, scratch: Path, seed: int) -> dict:
           f"checkpoints, {out['step_ms_ckpt']['median']:.2f} ms with; "
           f"overhead {out['ckpt_overhead']:.4f}; v10-v50 equal to the "
           f"reference's states; recovered v30, resumed v40")
+    return out
+
+
+SHARDED_STEPS = 3
+
+
+def _pfs_files(root: Path) -> dict:
+    """{relative path: bytes} of every file under a checkpoint's external
+    tier (shards, manifests)."""
+    pfs = root / "pfs"
+    return {str(f.relative_to(pfs)): f.read_bytes()
+            for f in sorted(pfs.rglob("*")) if f.is_file()}
+
+
+def _region_bytes(torch, a) -> bytes:
+    """A restored region's bytes (a numpy array, or a bf16 tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().view(torch.uint8).numpy().tobytes()
+    return a.tobytes()
+
+
+def sharded_path(torch, scratch: Path, seed: int) -> dict:
+    """Phase 7a, the sharded state path on the card: a one-rank NCCL
+    process group (initialised through a file under ``scratch``, no port)
+    and ``make_host_mesh(1, 1)`` on ``cuda``; veloc-demo-100m at full width
+    with ``fsdp=True``, its train state resolved through
+    ``resolve_tree(train_state_specs(cfg))`` and carried onto the mesh as
+    DTensors (``distribute_tree``); batches 8 x 256 from
+    ``SyntheticStream(mesh=)``.  With deterministic algorithms on (as the
+    train path has them), ``SHARDED_STEPS`` sharded steps and as many
+    plain steps from one initial state: every leaf's local tensor equal to
+    the plain tensor bit for bit, and the losses too.  Then v1 of the
+    sharded state through the default ``VelocConfig`` pipeline in sync
+    mode; ``restart_latest(template, shardings=)`` must give DTensors on
+    the same mesh with the same placements, bit-equal; and the sharded
+    checkpoint's regions and external-tier files (shards and manifests)
+    byte-identical to the plain state's checkpoint (on one rank every
+    local shard is the whole leaf, so every region keeps its plain name).
+    The group is destroyed at the end, so no later phase sees it; a failed
+    NCCL or mesh initialisation fails the phase (no fallback)."""
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    from repro_torch import runtime, sharding
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import VelocClient, VelocConfig
+    from repro_torch.core import restart as rst
+    from repro_torch.core.capture import leaves_with_paths, snapshot_device
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.steps import (init_train_state, make_train_step,
+                                         train_state_specs)
+
+    t_phase = time.perf_counter()
+    scratch.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", init_method="file://" + str(
+        scratch / "pg_init"), rank=0, world_size=1)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        mesh = make_host_mesh(1, 1)
+        backend = dist.get_backend()
+        if mesh.device_type != "cuda" or backend != "nccl":
+            raise AssertionError(f"mesh on {mesh.device_type}, backend "
+                                 f"{backend}")
+        cfg = get_config("veloc-demo-100m").replace(fsdp=True)
+        shape = ShapeCfg("cli", 256, 8, "train")
+        state = init_train_state(
+            cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        plain = snapshot_device(state).tree
+        sh = sharding.resolve_tree(state, train_state_specs(cfg), mesh,
+                                   cfg.fsdp)
+        st = sharding.distribute_tree(state, sh)
+        del state
+        placed = Counter(str(tuple(t.placements))
+                         for _, t in leaves_with_paths(st))
+        print(f"sharded path: {sum(placed.values())} leaves by placement "
+              f"{dict(placed)}")
+        step = make_train_step(cfg)
+
+        def run(state, batches, mesh_on):
+            losses, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with runtime.use_mesh(mesh if mesh_on else None):
+                    state, m = step(state, b)
+                loss = m["loss"].full_tensor() if mesh_on else m["loss"]
+                losses.append(float(loss))  # waits for the device
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return state, losses, ms
+
+        sm = SyntheticStream(cfg, shape, seed=seed, mesh=mesh)
+        sp = SyntheticStream(cfg, shape, seed=seed, device="cuda")
+        st, s_loss, s_ms = run(st, [sm.batch(i) for i in
+                                    range(SHARDED_STEPS)], True)
+        plain, p_loss, p_ms = run(plain, [sp.batch(i) for i in
+                                          range(SHARDED_STEPS)], False)
+        if s_loss != p_loss:
+            raise AssertionError(f"sharded losses {s_loss} != plain "
+                                 f"{p_loss}")
+        unequal = [n for (n, a), (_, b) in zip(leaves_with_paths(st),
+                                               leaves_with_paths(plain))
+                   if not torch.equal(a.to_local(), b)]
+        if unequal:
+            raise AssertionError(f"sharded steps differ from plain steps "
+                                 f"at {len(unequal)} leaves: {unequal[:4]}")
+
+        def ckpt(tree, where):
+            client = VelocClient(VelocConfig(scratch=str(scratch / where),
+                                             mode="sync"))
+            t0 = time.perf_counter()
+            fut = client.checkpoint(tree, version=1)
+            blocking = time.perf_counter() - t0
+            fut.result(timeout=120)  # raises the pipeline's error
+            return client, blocking, fut.results.get("app_blocking_s")
+
+        client, blocking_s, app_s = ckpt(st, "sharded")
+        t0 = time.perf_counter()
+        v, restored = client.restart_latest(st, shardings=sh)
+        restore_s = time.perf_counter() - t0
+        if v != 1:
+            raise AssertionError(f"restored {v}: "
+                                 f"{client.restart_diagnostics}")
+        for (n, a), (_, b) in zip(leaves_with_paths(st),
+                                  leaves_with_paths(restored)):
+            if not isinstance(b, type(a)) or b.device_mesh is not mesh \
+                    or b.placements != a.placements or \
+                    not torch.equal(a.to_local(), b.to_local()):
+                raise AssertionError(f"restored {n} differs")
+        pclient, p_blocking_s, _ = ckpt(plain, "plain")
+        regions = rst.load_rank_regions(client.cluster, "ckpt", 1, 0)
+        p_regions = rst.load_rank_regions(pclient.cluster, "ckpt", 1, 0)
+        if sorted(regions) != sorted(p_regions) or any("@" in k for k in
+                                                       regions):
+            raise AssertionError("sharded region names differ from plain")
+        for k, a in regions.items():
+            if _region_bytes(torch, a) != _region_bytes(torch, p_regions[k]):
+                raise AssertionError(f"region {k} differs from plain")
+        files, p_files = _pfs_files(scratch / "sharded"), \
+            _pfs_files(scratch / "plain")
+        if files != p_files:
+            raise AssertionError(
+                f"external-tier files differ: {sorted(files)} vs "
+                f"{sorted(p_files)}")
+        client.shutdown()
+        pclient.shutdown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        dist.destroy_process_group()
+    out = {"config": {"arch": cfg.name, "fsdp": cfg.fsdp, "batch": [8, 256],
+                      "mesh": {"data": 1, "model": 1},
+                      "backend": backend, "steps": SHARDED_STEPS},
+           "leaves_by_placement": dict(placed),
+           "losses": s_loss, "bit_equal_to_plain": True,
+           "step_ms_sharded": s_ms, "step_ms_plain": p_ms,
+           "ckpt_blocking_s": blocking_s, "app_blocking_s": app_s,
+           "plain_ckpt_blocking_s": p_blocking_s, "restore_s": restore_s,
+           "regions": len(regions), "external_files": len(files),
+           "checkpoint_bytes_identical": True,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"sharded path: {SHARDED_STEPS} sharded steps bit-equal to plain "
+          f"steps; v1 restored as DTensors, {len(regions)} regions and "
+          f"{len(files)} external files identical to the plain checkpoint")
     return out
 
 
@@ -3512,6 +3694,12 @@ def main(argv=None) -> int:
     gru = train.pop("gru")
     line("train path", train)
     line("gru gate", gru)
+    sharded, by_path["sharded"] = run_path(
+        "sharded path", ("checksum",),
+        lambda: sharded_path(torch, scratch / "sharded", args.seed + 20))
+    shutil.rmtree(scratch / "sharded", ignore_errors=True)
+    sharded["launches"] = by_path["sharded"]
+    line("sharded path", sharded)
     interval = interval_check(torch, args.seed)
     line("interval optimizer", interval)
     scans = recurrent_scans(torch, args.seed + 7)

@@ -209,6 +209,37 @@ class VelocConfig:
                             external=external)
 
 
+#: the modules a pipeline over a process-group ``Cluster`` may hold: each
+#: rank runs them alike and reaches every level's gather once, and none
+#: writes to another rank's node tier (which stays per process)
+PROCESS_GROUP_MODULES = ("interval", "serialize", "local", "flush", "verify")
+
+
+def _check_process_group_spec(spec: PipelineSpec, cluster: "Cluster"):
+    """Refuse a pipeline that a process-group cluster cannot commit
+    collectively: async mode (the ranks' levels would reach the gathers in
+    any order), a module outside ``PROCESS_GROUP_MODULES`` (the partner
+    copy and the XOR parity would land in the writing process's view of
+    another rank's node tier, so they would give no redundancy across
+    processes; delta chains are decided per rank), the aggregated write
+    path (a seal per process), and a defensive interval (a per-process
+    clock may skip a version on one rank only)."""
+    bad = [f"module {ms.name!r}" for ms in spec.modules
+           if ms.name not in PROCESS_GROUP_MODULES]
+    if spec.mode != "sync":
+        bad.append(f"mode={spec.mode!r}")
+    if spec.aggregate or cluster.aggregate:
+        bad.append("aggregate")
+    if (spec.module_options("interval") or {}).get("interval_s") is not None:
+        bad.append("interval_s")
+    if bad:
+        raise ValueError(
+            "a cluster over a process group commits each level "
+            "collectively and keeps node tiers per process; it cannot run "
+            + ", ".join(bad) + " (use a sync pipeline of "
+            + ", ".join(PROCESS_GROUP_MODULES) + ")")
+
+
 class Cluster:
     """Storage fabric + collective-commit coordination for ``nranks``
     simulated nodes (one process).  On a real deployment this maps to: node
@@ -219,6 +250,19 @@ class Cluster:
     compiles to one).  ``group_size`` is the erasure-group width recorded in
     manifests and used to locate parity homes; with a VelocConfig it
     defaults to ``cfg.xor_group``.
+
+    ``process_group``: one process a rank (a ``torch.distributed`` group of
+    ``nranks`` processes, each with its own ``Cluster`` over the same
+    scratch and a client of its own rank), as a mesh job runs.  Each
+    ``note_shard`` then first gathers every rank's status of that level
+    (its digest, or None where its write failed) over the group, so each
+    process sees the collective commit complete or fall short; the lowest
+    rank's process publishes the manifest.  The gather is a collective:
+    every rank reaches it once per level, in the same order, which only a
+    sync pipeline of the modules in ``PROCESS_GROUP_MODULES`` gives
+    (``VelocClient`` refuses any other on such a cluster).  The node tiers
+    stay per process, so the L2 modules, which write to other ranks' node
+    tiers, are not among them.
     """
 
     def __init__(self, topology: Union[TierTopology, VelocConfig],
@@ -228,7 +272,8 @@ class Cluster:
                  restore_readers: Optional[int] = None,
                  restore_cache_blobs: Optional[int] = None,
                  restore_hedge_factor: Optional[float] = None,
-                 peer_seal_copies: Optional[bool] = None):
+                 peer_seal_copies: Optional[bool] = None,
+                 process_group=None):
         if isinstance(topology, VelocConfig):
             self.cfg: Optional[VelocConfig] = topology
             if group_size is None:
@@ -253,6 +298,14 @@ class Cluster:
             self.cfg = None
         self.topology = topology
         self.nranks = nranks
+        self.process_group = process_group
+        if process_group is not None:
+            import torch.distributed as dist
+
+            if dist.get_world_size(process_group) != nranks:
+                raise ValueError(
+                    f"a cluster of {nranks} ranks over a process group of "
+                    f"{dist.get_world_size(process_group)}")
         self.group_size = int(group_size or 0)
         #: aggregated write path: None = undecided (adopted from the first
         #: client's PipelineSpec), else the explicit on/off switch.  Takes
@@ -1628,13 +1681,30 @@ class Cluster:
         While the version's aggregated batch / rolling pack is open the
         manifest is staged there (it travels in the single seal put);
         otherwise it is written outside the cluster lock — through the
-        sealed segment or pack when one exists."""
+        sealed segment or pack when one exists.
+
+        ``digest`` None says that ``rank``'s write of this level failed:
+        over a process group the rank still joins the level's gather (so
+        the ranks' gathers stay paired level by level) and only the ranks
+        that wrote are registered; the level's manifest then never
+        completes.  Without a process group there is nothing to note."""
         pubs = None
         probe = False
+        notes = {rank: digest}
+        if self.process_group is not None:
+            import torch.distributed as dist
+
+            got = [None] * self.nranks
+            dist.all_gather_object(got, (rank, digest),
+                                   group=self.process_group)
+            notes = dict(got)
+        notes = {r: d for r, d in notes.items() if d is not None}
+        if not notes:
+            return
         with self._lock:
             k = (name, version, level)
             reg = self._registry.setdefault(k, {})
-            reg[rank] = digest
+            reg.update(notes)
             self._vtimes.setdefault((name, version), time.time())
             if meta:
                 self._note_meta_locked(name, version, meta)
@@ -1647,7 +1717,9 @@ class Cluster:
                 key = fmt.manifest_key(name, version) + f".{level}"
                 self._cat_note_locked(name, version, level=level)
                 mode = self._stage_pubs_locked(name, version, {key: blob})
-                if mode != "staged":
+                # over a process group, one process writes the shared
+                # manifest: the lowest rank's
+                if mode != "staged" and rank == min(notes):
                     pubs = {key: blob}
                     # a version this process writes through the direct path
                     # cannot have a segment — skip the per-tier probes; a
@@ -2195,6 +2267,8 @@ class VelocClient:
             # cluster follows the first client's spec (every rank derives
             # the same value from the same spec).
             cluster.aggregate = spec.aggregate
+        if cluster.process_group is not None:
+            _check_process_group_spec(spec, cluster)
         self.cluster = cluster
         self.rank = rank
         self.mesh = mesh

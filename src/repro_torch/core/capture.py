@@ -17,17 +17,27 @@ in the same order and either one restores the other's checkpoints.
     events — so the copies neither wait for nor hold up the work the
     application queues on its stream after the snapshot.
   - :func:`tree_from_regions` rebuilds a tree on restart, each leaf on the
-    device and with the dtype of the matching template leaf.
+    device and with the dtype of the matching template leaf, or as a
+    DTensor on its sharding's mesh.
+
   - :class:`DeviceDeltaCapture` is device-side dirty tracking: it keeps
     each leaf's block fingerprints in device memory across checkpoints, so
     dirty detection is one fused fingerprint-diff kernel and only the dirty
     chunks, packed by the gather kernel, are copied to the host.  Its work
     runs on a capture stream of its own that waits on the snapshot's events,
     like the copy stream above.
+
+Sharded leaves (DTensors, one process a rank) follow the JAX package's
+"every host writes its own shard" rule: a leaf whose local shard is
+smaller than the leaf yields one region for this rank's shard, named
+``name@s0,s1,...`` after the shard's global starts; a leaf whose local
+shard is the whole leaf (replicated, or a one-rank mesh) keeps its plain
+name.  Device-delta capture takes only such whole leaves, as in JAX.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field
 from typing import Any, Iterator, Optional
 
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import concurrency
+from repro_torch.sharding import is_dtensor
 from repro_torch.core import delta as dlt
 from repro_torch.core.format import Region, dtype_name, host_array
 from repro_torch.kernels import ops as kops
@@ -81,6 +92,28 @@ def map_tree(fn, tree, path=()):
 def leaves_with_paths(tree) -> list[tuple[str, Any]]:
     """``[(path name, leaf)]`` in checkpoint order."""
     return [(_path_str(p), leaf) for p, leaf in _walk(tree)]
+
+
+def _local_box(shape, mesh, placements):
+    """(local shape, global starts) of this rank's shard of a leaf."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    local, starts = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, tuple(placements))
+    return tuple(int(n) for n in local), tuple(int(o) for o in starts)
+
+
+def _local_leaf(leaf):
+    """A leaf as this rank holds it: ``(tensor, starts)``, ``starts`` None
+    when the tensor is the whole leaf."""
+    if not is_dtensor(leaf):
+        return leaf, None
+    local = leaf.to_local()
+    if tuple(local.shape) == tuple(leaf.shape):
+        return local, None
+    _, starts = _local_box(leaf.shape, leaf.device_mesh, leaf.placements)
+    return local, starts
 
 
 def snapshot_device(state) -> DeviceSnapshot:
@@ -365,7 +398,12 @@ def iter_host_regions(snap, *, rank_prefix: str = "",
     waited = set()
     for path, leaf in _walk(snap):
         name = rank_prefix + _path_str(path)
-        if device_delta is not None and device_delta.eligible(leaf):
+        global_shape = tuple(np.shape(leaf))
+        leaf, starts = _local_leaf(leaf)
+        if starts is not None:
+            name += "@" + ",".join(str(o) for o in starts)
+        if starts is None and device_delta is not None \
+                and device_delta.eligible(leaf):
             if leaf.is_cuda and leaf.device not in waited:
                 ev = events.get(leaf.device)
                 if ev is None:
@@ -373,9 +411,8 @@ def iter_host_regions(snap, *, rank_prefix: str = "",
                     ev.record(torch.cuda.current_stream(leaf.device))
                 device_delta.wait_event(leaf.device, ev)
                 waited.add(leaf.device)
-            yield Region(name=name, array=None,
-                         global_shape=tuple(leaf.shape), leaf=leaf,
-                         capture=device_delta)
+            yield Region(name=name, array=None, global_shape=global_shape,
+                         leaf=leaf, capture=device_delta)
             continue
         stream = streams.get(getattr(leaf, "device", None))
         if stream is None:
@@ -384,8 +421,8 @@ def iter_host_regions(snap, *, rank_prefix: str = "",
             # a blocking copy: the leaf is on the host when this returns
             with torch.cuda.stream(stream):
                 arr, dtype = host_array(leaf)
-        yield Region(name=name, array=arr,
-                     global_shape=tuple(np.shape(leaf)), dtype=dtype)
+        yield Region(name=name, array=arr, global_shape=global_shape,
+                     dtype=dtype)
 
 
 def host_state_bytes(snap) -> int:
@@ -393,6 +430,7 @@ def host_state_bytes(snap) -> int:
         snap = snap.tree
     total = 0
     for _, leaf in _walk(snap):
+        leaf = _local_leaf(leaf)[0]
         if isinstance(leaf, torch.Tensor):
             total += leaf.numel() * leaf.element_size()
         elif hasattr(leaf, "dtype"):
@@ -413,21 +451,58 @@ def _as_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.asarray(arr))
 
 
-def _assemble(name: str, shape, regions: dict):
-    """Reassemble a leaf from per-shard pieces ("name@start0,start1,...")."""
+def _assemble(name: str, shape, regions: dict, box_starts=None):
+    """Reassemble a leaf, or the box of it of ``shape`` at global
+    ``box_starts``, from per-shard pieces ("name@start0,start1,..."):
+    each piece fills where it overlaps the box."""
     prefix = name + "@"
     pieces = {k: _as_tensor(v) for k, v in regions.items()
               if k.startswith(prefix)}
     if not pieces:
         raise KeyError(f"region {name!r} missing from checkpoint")
+    box = tuple(box_starts or (0,) * len(shape))
     first = pieces[next(iter(pieces))]
     out = torch.zeros(tuple(shape), dtype=first.dtype)
+    covered = 0
     for k, piece in pieces.items():
         suffix = k[len(prefix):]
         starts = tuple(int(s) for s in suffix.split(",")) if suffix else ()
-        sl = tuple(slice(s, s + d) for s, d in zip(starts, piece.shape))
-        out[sl] = piece
+        lo = [max(s, b) for s, b in zip(starts, box)]
+        hi = [min(s + d, b + n) for s, d, b, n in
+              zip(starts, piece.shape, box, shape)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        dst = tuple(slice(a - b, c - b) for a, c, b in zip(lo, hi, box))
+        src = tuple(slice(a - s, c - s) for a, c, s in zip(lo, hi, starts))
+        out[dst] = piece[src]
+        covered += math.prod(c - a for a, c in zip(lo, hi))
+    if covered < math.prod(shape):
+        raise KeyError(f"region {name!r}: the checkpoint's pieces cover "
+                       f"{covered} of the {math.prod(shape)} values wanted")
     return out
+
+
+def _sharded_leaf(name, shape, dtype, sh, regions):
+    """This rank's shard of a leaf, from the whole leaf's region or the
+    pieces that overlap it, as a DTensor with the sharding's placements
+    (``jax.device_put`` with a ``NamedSharding``)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, pl = sh.mesh, sh.placements
+    local_shape, starts = _local_box(shape, mesh, pl)
+    if name in regions:
+        t = _as_tensor(regions[name]).reshape(shape)
+        t = t[tuple(slice(s, s + n) for s, n in zip(starts, local_shape))]
+    else:
+        t = _assemble(name, local_shape, regions, starts)
+    device = mesh.device_type
+    if device == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    local = t.to(device=device, dtype=dtype, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def tree_from_regions(template, regions: dict, shardings=None):
@@ -435,13 +510,23 @@ def tree_from_regions(template, regions: dict, shardings=None):
     and device of the matching template leaf (a numpy or scalar template
     leaf gives a CPU tensor; a ``meta`` tensor, a template that holds no
     memory as ``jax.eval_shape``'s does, lands on the package's device as
-    a ``ShapeDtypeStruct`` leaf lands on JAX's default device)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharded restore is not ported yet (ROADMAP.md queue 1, item 10)")
+    a ``ShapeDtypeStruct`` leaf lands on JAX's default device).
+
+    With ``shardings`` (a tree of ``sharding.NamedSharding`` matching the
+    template, e.g. ``resolve_tree``'s), each leaf is a DTensor on its
+    sharding's mesh with its placements, this rank holding its shard,
+    rebuilt from the regions it wrote (its own shard, or the whole leaf)
+    or from any pieces that cover it."""
+    by_path = None if shardings is None else {
+        _path_str(p): sh for p, sh in _walk(shardings)}
 
     def build(path, leaf):
         name = _path_str(path)
+        if by_path is not None:
+            shape = tuple(np.shape(leaf))
+            dtype = leaf.dtype if isinstance(leaf, torch.Tensor) \
+                else _torch_dtype(np.asarray(leaf).dtype)
+            return _sharded_leaf(name, shape, dtype, by_path[name], regions)
         if isinstance(leaf, torch.Tensor):
             shape, dtype, device = leaf.shape, leaf.dtype, leaf.device
             if device.type == "meta":

@@ -289,6 +289,8 @@ class LocalWriteModule(Module):
         except Exception as e:  # noqa: BLE001 — a dead local tier must not
             # take the pipeline down; L2/L3 still run and restart falls back.
             ctx.results["l1_error"] = f"{type(e).__name__}: {e}"
+            ctx.cluster.note_shard(ctx.name, ctx.version, "L1", ctx.rank,
+                                   None)
             return "error"
         ctx.results["l1_tier"] = tier.info.name
         ctx.cluster.note_shard(ctx.name, ctx.version, "L1", ctx.rank, ctx.digest,
@@ -318,6 +320,8 @@ class PartnerModule(Module):
                      ctx.shard)
         except Exception as e:  # noqa: BLE001
             ctx.results["l2_partner_error"] = f"{type(e).__name__}: {e}"
+            ctx.cluster.note_shard(ctx.name, ctx.version, "L2", ctx.rank,
+                                   None)
             return "error"
         ctx.cluster.note_shard(ctx.name, ctx.version, "L2", ctx.rank, ctx.digest,
                                meta=ctx.meta)
@@ -511,6 +515,8 @@ class FlushModule(Module):
             tier.put(key, ctx.shard)
         except Exception as e:  # noqa: BLE001
             ctx.results["l3_error"] = f"{type(e).__name__}: {e}"
+            ctx.cluster.note_shard(ctx.name, ctx.version, "L3", ctx.rank,
+                                   None)
             return "error"
         ctx.results["l3_tier"] = tier.info.name
         ctx.cluster.note_shard(ctx.name, ctx.version, "L3", ctx.rank, ctx.digest,

@@ -4,12 +4,20 @@ the slots of the data axis, in device memory (the JAX package's
 
 In the JAX package both entry points are one ``shard_map`` over the mesh:
 each device flattens its local shard blocks into a uint32 buffer and the
-buffers move between devices by ``ppermute``.  Here the same single
-controller drives a list of slots, one local tree per slot along the data
-axis, each on its slot's device (on one card every slot is ``cuda:0``; in
-the CPU tests the slots are CPU tensors).  A ``ppermute`` is a move of each
-slot's buffer to its destination slot's device (no copy when both slots
-share it).
+buffers move between devices by ``ppermute``.  ``encode_l2`` has two forms:
+
+  - the mesh form, ``encode_l2(state, pspecs, mesh, ...)``: the same
+    schedule over a ``DeviceMesh``, one process a rank, under
+    ``runtime.shard_map`` (``local_map``); a ``ppermute`` is a
+    ``permute_tensor`` over the axis' process group.  Each rank's output is
+    the JAX mesh device's slice, and the whole is a DTensor sharded over
+    every mesh axis, as JAX's ``P(all_axes)``.
+  - the slot-list form, ``encode_l2(local, ...)``: one controller drives a
+    list of slots, one local tree per slot along the data axis, each on its
+    slot's device (on one card every slot is ``cuda:0``; in the CPU tests
+    the slots are CPU tensors).  A ``ppermute`` is a move of each slot's
+    buffer to its destination slot's device.  It is the single-process
+    oracle of the mesh form.
 
   encode_l2(mode="partner") — every slot's buffer goes to the slot
       ``distance`` further along the ring (replication without stable
@@ -81,17 +89,64 @@ def _stripe_layout(buf: torch.Tensor, g: int, G: int):
     return xs, c
 
 
-def encode_l2(local, *, mode: str = "xor", distance: int = 1
-              ) -> list[torch.Tensor]:
-    """local: the G local trees along the data axis, one per slot, each on
-    its slot's device.  Returns the G output buffers: slot g's is what
-    device g of the JAX package's mesh holds (the partner copy it received,
-    or its parity stripe), on slot g's device."""
+def _encode_mesh(state, pspecs, mesh, mode, axis, distance):
+    from torch.distributed import _functional_collectives as funcol
+
+    from repro_torch import runtime, sharding
+
+    G = runtime.mesh_axes(mesh).get(axis)
+    if G is None or G < 2:
+        raise ValueError("L2 encode needs >=2 slots on the partner axis")
+    group = mesh.get_group(axis)  # group rank = coordinate along the axis
+    g = mesh.get_local_rank(axis)
+    pairs = []  # (leaf, spec) in checkpoint order (dict keys sorted)
+    sharding._map_up_to(state, pspecs,
+                        lambda leaf, sp: pairs.append((leaf, sp)))
+
+    def permute(buf, shift):
+        out = funcol.permute_tensor(buf.contiguous(),
+                                    [(i + shift) % G for i in range(G)],
+                                    group)
+        return funcol.wait_tensor(out)
+
+    def inner(*leaves):
+        buf = _pad_to(flatten_local_u32(list(leaves)), 1024)
+        if mode == "partner":
+            return permute(buf, distance)
+        # --- SCR rotating-parity ring reduce-scatter -------------------
+        xs, _ = _stripe_layout(buf, g, G)
+        acc = xs[(g - 1) % G]
+        for i in range(G - 1):
+            acc = kops.xor_pair(permute(acc, 1), xs[(g - 2 - i) % G])
+        return acc
+
+    all_axes = tuple(runtime.mesh_axes(mesh))
+    fn = runtime.shard_map(inner, mesh=mesh,
+                           in_specs=tuple(sp for _, sp in pairs),
+                           out_specs=sharding.P(all_axes))
+    return fn(*(leaf for leaf, _ in pairs))
+
+
+def encode_l2(local, pspecs=None, mesh=None, *, mode: str = "xor",
+              axis: str = "data", distance: int = 1):
+    """Mesh form (``mesh`` given): ``local`` is the sharded state (DTensor
+    leaves), ``pspecs`` its matching tree of resolved specs; every rank of
+    ``mesh`` calls it.  Returns a 1-D DTensor of int32 words sharded over
+    every mesh axis: this rank's local part is the L2 artifact its host
+    must persist (the partner copy it received along ``axis``, or its
+    parity stripe), JAX's mesh device's slice.
+
+    Slot-list form: ``local`` is the G local trees along the data axis, one
+    per slot, each on its slot's device.  Returns the G output buffers:
+    slot g's is what device g of the JAX package's mesh holds, on slot g's
+    device."""
+    if mode not in ("partner", "xor"):
+        raise ValueError(f"unknown L2 mode {mode!r}")
+    if mesh is not None:
+        return _encode_mesh(local, pspecs, mesh, mode, axis, distance)
     G = len(local)
     if G < 2:
         raise ValueError("L2 encode needs >=2 slots on the partner axis")
-    if mode not in ("partner", "xor"):
-        raise ValueError(f"unknown L2 mode {mode!r}")
     bufs = [_pad_to(flatten_local_u32(tree), 1024) for tree in local]
     if len({b.shape[0] for b in bufs}) != 1:
         raise ValueError(f"slots of unequal length "

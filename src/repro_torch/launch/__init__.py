@@ -1,2 +1,2 @@
 """Entry points of the port: the trainer (``python -m
-repro_torch.launch.train``)."""
+repro_torch.launch.train``) and the meshes (``launch.mesh``)."""

@@ -27,8 +27,10 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _attn_cache, _stack, _unstack
+from repro_torch.models.transformer import (_attn_cache, _stack, _unstack,
+                                            embed_lookup, token_nll)
 
 CROSS_LEN = 1500  # whisper's native encoder length, the decode cross cache's
 
@@ -44,6 +46,28 @@ def _init_dec_block(gen, cfg, device):
     return {"norm1": ones, "self": L.init_attn(gen, cfg, device),
             "norm_x": ones.clone(), "cross": L.init_attn(gen, cfg, device),
             "norm2": ones.clone(), "mlp": L.init_mlp(gen, cfg, device)}
+
+
+def _spec_enc_block(cfg):
+    return {"norm1": (None,), "attn": L.spec_attn(cfg),
+            "norm2": (None,), "mlp": L.spec_mlp(cfg)}
+
+
+def _spec_dec_block(cfg):
+    return {"norm1": (None,), "self": L.spec_attn(cfg),
+            "norm_x": (None,), "cross": L.spec_attn(cfg),
+            "norm2": (None,), "mlp": L.spec_mlp(cfg)}
+
+
+def spec_encdec(cfg):
+    return {
+        "enc_blocks": sharding.stacked(_spec_enc_block(cfg)),
+        "enc_norm": (None,),
+        "dec_blocks": sharding.stacked(_spec_dec_block(cfg)),
+        "dec_norm": (None,),
+        "tok_emb": ("model", "fsdp"), "pos_emb": (None, None),
+        "lm_head": ("fsdp", "model"),
+    }
 
 
 def init_encdec(gen, cfg, device):
@@ -109,7 +133,7 @@ def _dec_logits(params, cfg, x):
 def _embed(params, cfg, tokens):
     ct = L.cdt(cfg)
     T = tokens.shape[1]
-    return params["tok_emb"][tokens].to(ct) \
+    return embed_lookup(params["tok_emb"], tokens).to(ct) \
         + params["pos_emb"][:T].to(ct)[None]
 
 
@@ -141,9 +165,7 @@ def encdec_loss(params, cfg, batch):
     enc_out = encode(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     logits = decode_train(params, cfg, tokens, enc_out)
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -torch.gather(logp, -1, tokens[:, 1:].long()[..., None])[..., 0]
-    return nll.mean()
+    return token_nll(logits[:, :-1], tokens[:, 1:].long()).mean()
 
 
 def encdec_prefill(params, cfg, batch, cache_len=None):
@@ -181,6 +203,15 @@ def encdec_cache_init(cfg, B, S, device):
     return {"k": zeros(Ld, B, S, K, hd), "v": zeros(Ld, B, S, K, hd),
             "cross_k": zeros(Ld, B, CROSS_LEN, H, hd),
             "cross_v": zeros(Ld, B, CROSS_LEN, H, hd)}
+
+
+def encdec_cache_spec(cfg):
+    return {
+        "k": (None, "batch", "seq", None, None),
+        "v": (None, "batch", "seq", None, None),
+        "cross_k": (None, "batch", "seq", None, None),
+        "cross_v": (None, "batch", "seq", None, None),
+    }
 
 
 def encdec_decode_step(params, cfg, cache, token, pos):

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import runtime, sharding
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a numpy-style name ("float32", "bfloat16")."""
@@ -112,6 +114,16 @@ def init_mlp(gen, cfg, device):
             "w_down": he(gen, (f, d), dt, device, fan_in=f)}
 
 
+def spec_mlp(cfg):
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {
+            "w_gate": ("fsdp", "model"),
+            "w_up": ("fsdp", "model"),
+            "w_down": ("model", "fsdp"),
+        }
+    return {"w_up": ("fsdp", "model"), "w_down": ("model", "fsdp")}
+
+
 def apply_mlp(p, cfg, x):
     ct = cdt(cfg)
     x = x.to(ct)
@@ -135,27 +147,108 @@ def apply_mlp(p, cfg, x):
 ATTN_CHUNK = 1024  # q-chunk size used once Tq exceeds this (bounds score memory)
 
 
-def _attn_block(q, k, v, *, causal, window, q_start, k_len_valid=None):
-    """q: (B,Tq,H,hd) k: (B,Tk,H,hd) v: (B,Tk,H,hv) -> (B,Tq,H,hv).  Mask
-    rows are the global query positions q_start..q_start+Tq-1; keys are
-    positions 0..Tk-1, of which only the first ``k_len_valid`` (an int or
-    a 0-d tensor) are real when it is given.  Scores are scaled by
-    1/sqrt(hd), q's width."""
-    Tq, hd, Tk = q.shape[1], q.shape[3], k.shape[1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-    scores = wide(scores)
-    qpos = q_start + torch.arange(Tq, device=q.device)[:, None]
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+def _shard_scores(shape, mesh):
+    """The spec of the (B,H,Tq,Tk) score tensor on ``mesh``:
+    the "model" axis on H when the head count divides it (plain TP),
+    otherwise on the KEY dim (sequence-parallel attention), as the
+    left-to-right claiming of ``sharding.resolve_spec`` arbitrates.  Tk,
+    not Tq, so the backward's dk/dv stay rank-local."""
+    return sharding.resolve_spec(tuple(shape), ("batch", "model", None,
+                                                "model"), mesh, False)
+
+
+def _mask(Tq, Tk, device, *, causal, window, q_start, k_len_valid,
+          k_start=0):
+    """(Tq, Tk) bool: which keys (global positions k_start..) each query
+    (global positions q_start..) attends to."""
+    qpos = q_start + torch.arange(Tq, device=device)[:, None]
+    kpos = k_start + torch.arange(Tk, device=device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
     if k_len_valid is not None:
         mask &= kpos < k_len_valid
+    return mask
+
+
+def _attn_block(q, k, v, *, causal, window, q_start, k_len_valid=None):
+    """q: (B,Tq,H,hd) k: (B,Tk,H,hd) v: (B,Tk,H,hv) -> (B,Tq,H,hv).  Mask
+    rows are the global query positions q_start..q_start+Tq-1; keys are
+    positions 0..Tk-1, of which only the first ``k_len_valid`` (an int or
+    a 0-d tensor) are real when it is given.  Scores are scaled by
+    1/sqrt(hd), q's width.  DTensor inputs take ``_attn_block_sharded``."""
+    if sharding.is_dtensor(q):
+        return _attn_block_sharded(q, k, v, causal=causal, window=window,
+                                   q_start=q_start, k_len_valid=k_len_valid)
+    Tq, hd, Tk = q.shape[1], q.shape[3], k.shape[1]
+    scores = wide(torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd))
+    mask = _mask(Tq, Tk, q.device, causal=causal, window=window,
+                 q_start=q_start, k_len_valid=k_len_valid)
     scores = torch.where(mask, scores, -1e30)
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)
+
+
+def _attn_keys_local(q, k, v, mesh, k_start, *, causal, window, q_start,
+                     k_len_valid):
+    """One model rank's attention over its slice of the keys (global
+    positions ``k_start``..): the softmax's max and sum, and the output,
+    are all-reduced over "model"."""
+    from torch.distributed import _functional_collectives as funcol
+
+    Tq, hd, Tk = q.shape[1], q.shape[3], k.shape[1]
+    scores = wide(torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd))
+    mask = _mask(Tq, Tk, q.device, causal=causal, window=window,
+                 q_start=q_start, k_len_valid=k_len_valid, k_start=k_start)
+    scores = torch.where(mask, scores, -1e30)
+    # the shift cancels in the softmax: no gradient flows through it
+    top = funcol.wait_tensor(funcol.all_reduce(
+        scores.detach().amax(dim=-1, keepdim=True), "max",
+        mesh.get_group("model")))
+    e = torch.exp(scores - top)
+    # each rank divides its own keys' terms by the sum: its gradient of
+    # the sum is a part of the whole
+    denom = runtime.psum_local_use(e.sum(dim=-1, keepdim=True), mesh,
+                                   "model")
+    attn = (e / denom).to(q.dtype)
+    return runtime.psum(torch.einsum("bhqk,bkhd->bqhd", attn, v), mesh,
+                        "model")
+
+
+def _attn_block_sharded(q, k, v, *, causal, window, q_start, k_len_valid):
+    """``_attn_block`` on DTensors, under ``runtime.shard_map``.  The
+    scores' spec (``_shard_scores``) decides the layout: the batch over
+    the data axes and, when the head count divides "model", the heads
+    over it (each rank attends with its own heads, no collective);
+    otherwise the keys over "model" (``_attn_keys_local``: each rank's
+    keys, the softmax's statistics and the output all-reduced).  The
+    scores never exist as a DTensor: their einsums flatten two sharded
+    dims, which not every torch release can propagate."""
+    mesh = q.device_mesh
+    B, Tq, H, _ = q.shape
+    spec = _shard_scores((B, H, Tq, k.shape[1]), mesh)
+    spec = tuple(spec) + (None,) * (4 - len(spec))
+    P = sharding.P
+    kw = dict(causal=causal, window=window, q_start=q_start,
+              k_len_valid=k_len_valid)
+    if spec[3] != "model":
+        s = P(spec[0], None, spec[1], None)
+        fn = runtime.shard_map(lambda a, b, c: _attn_block(a, b, c, **kw),
+                               mesh=mesh, in_specs=(s, s, s), out_specs=s)
+        return fn(q, k, v)
+    n = runtime.mesh_axes(mesh).get("model")
+    qs, ks = P(spec[0], None, None, None), P(spec[0], "model", None, None)
+
+    def body(a, b, c):
+        start = mesh.get_local_rank("model") * (k.shape[1] // n)
+        return _attn_keys_local(a, b, c, mesh, start, **kw)
+
+    fn = runtime.shard_map(body, mesh=mesh, in_specs=(qs, ks, ks),
+                           out_specs=qs,
+                           in_grad_specs=(("model",), (), ()))
+    return fn(q, k, v)
 
 
 def sdpa(q, k, v, *, causal=True, window=0, q_start=0, chunk=ATTN_CHUNK):
@@ -195,6 +288,15 @@ def init_attn(gen, cfg, device):
             "wk": he(gen, (d, K, hd), dt, device, fan_in=d),
             "wv": he(gen, (d, K, hd), dt, device, fan_in=d),
             "wo": he(gen, (H, hd, d), dt, device, fan_in=H * hd)}
+
+
+def spec_attn(cfg):
+    return {
+        "wq": ("fsdp", "model", None),
+        "wk": ("fsdp", "model", None),
+        "wv": ("fsdp", "model", None),
+        "wo": ("model", None, "fsdp"),
+    }
 
 
 def apply_attn(p, cfg, x, positions, *, window=0, causal=None,
@@ -285,6 +387,18 @@ def init_mla(gen, cfg, device):
                     fan_in=m.kv_lora_rank),
         "wo": he(gen, (H, m.v_head_dim, d), dt, device,
                  fan_in=H * m.v_head_dim)}
+
+
+def spec_mla(cfg):
+    return {
+        "wq_a": ("fsdp", None),
+        "q_norm": (None,),
+        "wq_b": (None, "model", None),
+        "wkv_a": ("fsdp", None),
+        "kv_norm": (None,),
+        "wkv_b": (None, "model", None),
+        "wo": ("model", None, "fsdp"),
+    }
 
 
 def _mla_qkv(p, cfg, x, positions):

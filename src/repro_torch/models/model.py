@@ -3,14 +3,21 @@ dense, MoE, xLSTM, RG-LRU hybrids, the vision frontend stub; and the
 encoder-decoder).
 
   init_model          params on an explicit device
+  model_specs         the params' logical sharding specs
   make_loss_fn        (params, batch) -> scalar loss
   make_prefill_fn     (params, batch) -> (last_logits, cache)
   make_decode_fn      (params, cache, token, pos) -> (logits, cache)
   cache_init          an empty decode cache
+  cache_specs         its logical sharding specs
   batch_struct        shapes and dtypes of a batch
+  batch_specs         their logical sharding specs
   make_batch          a concrete random batch (smoke tests, demos)
   count_params        exact parameter counts (total / active / expert)
   model_flops         6*N*D for training, 2*N*D otherwise
+
+Under a mesh (``runtime.use_mesh``) the functions made here take DTensor
+parameters and batches; the tables a forward builds as plain tensors
+(positions, masks, the rotary factors) act there as replicated operands.
 """
 from __future__ import annotations
 
@@ -31,6 +38,12 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator, device):
     if cfg.is_encoder_decoder:
         return ED.init_encdec(generator, cfg, torch.device(device))
     return TF.init_lm(generator, cfg, torch.device(device))
+
+
+def model_specs(cfg: ModelConfig):
+    if cfg.is_encoder_decoder:
+        return ED.spec_encdec(cfg)
+    return TF.spec_lm(cfg)
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -66,6 +79,12 @@ def cache_init(cfg: ModelConfig, B: int, S: int, *, device):
     return TF.lm_cache_init(cfg, B, S, torch.device(device))
 
 
+def cache_specs(cfg: ModelConfig):
+    if cfg.is_encoder_decoder:
+        return ED.encdec_cache_spec(cfg)
+    return TF.lm_cache_spec(cfg)
+
+
 @dataclass(frozen=True)
 class Struct:
     """Shape and dtype name of one batch entry (``jax.ShapeDtypeStruct``
@@ -96,6 +115,18 @@ def batch_struct(cfg: ModelConfig, shape: ShapeCfg, kind: str | None = None):
         return {"tokens": Struct((B, T - P), "int32"),
                 "patches": Struct((B, P, cfg.d_model), ct)}
     return {"tokens": Struct((B, T), "int32")}
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeCfg, kind: str | None = None):
+    """Logical sharding specs matching ``batch_struct``."""
+    kind = kind or shape.kind
+    if kind == "decode":
+        return {"token": ("batch", None), "pos": ()}
+    if cfg.is_encoder_decoder:
+        return {"frames": ("batch", None, None), "tokens": ("batch", None)}
+    if cfg.frontend == "vision":
+        return {"tokens": ("batch", None), "patches": ("batch", None, None)}
+    return {"tokens": ("batch", None)}
 
 
 def float_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:

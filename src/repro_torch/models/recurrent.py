@@ -167,6 +167,20 @@ def init_mlstm_block(gen, cfg, device):
     }
 
 
+def spec_mlstm_block(cfg):
+    return {
+        "norm": (None,),
+        "w_up": ("fsdp", "model"),
+        "w_z": ("fsdp", "model"),
+        "wq": (None, None, None),
+        "wk": (None, None, None),
+        "w_gates": ("model", None),
+        "b_gates": (None,),
+        "gn": (None,),
+        "w_down": ("model", "fsdp"),
+    }
+
+
 def _mlstm_qkvg(p, cfg, x):
     ct = cdt(cfg)
     B, T, d = x.shape
@@ -236,6 +250,18 @@ def init_slstm_block(gen, cfg, device):
         "w_ff1": he(gen, (d, f_ff), dt, device),
         "w_ff2": he(gen, (d, f_ff), dt, device),
         "w_ff3": he(gen, (f_ff, d), dt, device, fan_in=f_ff),
+    }
+
+
+def spec_slstm_block(cfg):
+    # W/R output-shard the per-head hd dim over "model": the cell state and
+    # its per-timestep gradient accumulators then live hd-sharded
+    return {
+        "norm": (None,), "W": ("fsdp", None, None, "model"),
+        "R": (None, None, None, "model"), "b": (None, None, "model"),
+        "gn": (None,), "norm2": (None,),
+        "w_ff1": ("fsdp", "model"), "w_ff2": ("fsdp", "model"),
+        "w_ff3": ("model", "fsdp"),
     }
 
 
@@ -346,6 +372,16 @@ def init_rglru_block(gen, cfg, device):
         "b_i": torch.zeros((w,), dtype=dt, device=device),
         "lam": lam,
         "w_out": he(gen, (w, d), dt, device, fan_in=w),
+    }
+
+
+def spec_rglru_block(cfg):
+    return {
+        "norm": (None,), "w_x": ("fsdp", "model"), "w_gate": ("fsdp", "model"),
+        "conv_w": (None, "model"), "conv_b": ("model",),
+        "w_r": (None, "model"), "b_r": ("model",),
+        "w_i": (None, "model"), "b_i": ("model",),
+        "lam": ("model",), "w_out": ("model", "fsdp"),
     }
 
 

@@ -16,14 +16,20 @@ decode cache) and one-token decode.  The FFN half of the attention-style
 and RG-LRU blocks is a dense MLP, or the MoE layer when ``cfg.moe`` is set
 (``repro_torch.models.moe``, every expert on the one card).
 ``extra_embeds`` (the vision frontend stub's patch embeddings) are
-prepended to the token embeddings.  The sharding constraints of the JAX
-package (``_constrain``, ``gather_fsdp``) have nothing to do on one card.
+prepended to the token embeddings.
+
+Under a mesh (``runtime.use_mesh``) with DTensor parameters, the JAX
+package's sharding constraints run as DTensor redistributions:
+``_constrain`` places the embeddings' batch over the data axes, and
+``gather_fsdp`` gathers each layer's FSDP-sharded parameters before use.
+Without a mesh, or on plain tensors, both are no-ops.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import runtime, sharding
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as R
@@ -38,6 +44,95 @@ def _check_kind(cfg, kind: str):
         raise ValueError(f"unknown block kind {kind!r}")
     if kind == "mla" and cfg.mla is None:
         raise ValueError("block kind 'mla' needs cfg.mla")
+
+
+def _constrain(x, *spec):
+    """``with_sharding_constraint`` against the ambient mesh (a no-op
+    without one, or on a plain tensor)."""
+    return sharding.constrain(x, spec)
+
+
+def gather_fsdp(params, specs):
+    """Explicit ZeRO-3 all-gather of one layer's FSDP-sharded params.
+
+    Under a mesh, each DTensor leaf is redistributed to its spec with the
+    "fsdp" dims dropped, right before use: a contraction over an
+    fsdp-sharded d_model would otherwise leave a ``Partial`` activation to
+    be all-reduced at full activation size.  Its backward reduce-scatters
+    the gradient back to the leaf's own placement."""
+    return sharding._map_up_to(params, specs,
+                               lambda leaf, sp: sharding.constrain(leaf, sp))
+
+
+def _vocab_split(mesh, V: int):
+    """The mesh's data axes (or None) and whether the vocab dim is split
+    over a "model" axis larger than 1 (a size-1 axis splits nothing)."""
+    n = runtime.mesh_axes(mesh).get("model") or 1
+    return runtime.data_axes(mesh) or None, n > 1 and V % n == 0
+
+
+def embed_lookup(emb, tokens):
+    """``emb[tokens]``.  On DTensors, under ``runtime.shard_map``: the rows
+    of the vocab slice each "model" rank holds, zeros for the other
+    tokens, summed over "model" (a vocab-parallel embedding); each data
+    rank's gradient of the table is the part from its own tokens."""
+    if not sharding.is_dtensor(emb):
+        return emb[tokens]
+    mesh = emb.device_mesh
+    dp, split = _vocab_split(mesh, emb.shape[0])
+    P = sharding.P
+
+    def body(e, t):
+        if not split:
+            return e[t]
+        lo = mesh.get_local_rank("model") * e.shape[0]
+        mine = (t >= lo) & (t < lo + e.shape[0])
+        rows = e[(t - lo).clamp(0, e.shape[0] - 1)] * mine[..., None].to(
+            e.dtype)
+        return runtime.psum(rows, mesh, "model")
+
+    fn = runtime.shard_map(
+        body, mesh=mesh, in_specs=(P("model" if split else None, None),
+                                   P(dp, None)),
+        out_specs=P(dp, None, None), in_grad_specs=(dp or (), ()))
+    return fn(emb, sharding.as_dtensor(tokens, mesh))
+
+
+def token_nll(logits, targets):
+    """(B, T, V) logits, (B, T) targets -> (B, T) negative log-likelihood.
+    On DTensors, under ``runtime.shard_map``: with the vocab split over
+    "model", the log-sum-exp's max and sum and the target's logit are
+    combined over "model" (vocab-parallel cross-entropy)."""
+    if not sharding.is_dtensor(logits):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, targets[..., None])[..., 0]
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = logits.device_mesh
+    dp, split = _vocab_split(mesh, logits.shape[-1])
+    P = sharding.P
+
+    def body(lg, tg):
+        if not split:
+            return token_nll(lg, tg)
+        top = funcol.wait_tensor(funcol.all_reduce(
+            lg.detach().amax(dim=-1), "max",
+            mesh.get_group("model")))
+        lse = torch.log(runtime.psum(torch.exp(lg - top[..., None]).sum(-1),
+                                     mesh, "model")) + top
+        Vl = lg.shape[-1]
+        lo = mesh.get_local_rank("model") * Vl
+        mine = (tg >= lo) & (tg < lo + Vl)
+        picked = torch.gather(lg, -1, (tg - lo).clamp(0, Vl - 1)[..., None])
+        picked = runtime.psum(picked[..., 0] * mine.to(lg.dtype), mesh,
+                              "model")
+        return lse - picked
+
+    fn = runtime.shard_map(
+        body, mesh=mesh, in_specs=(P(dp, None, "model" if split else None),
+                                   P(dp, None)),
+        out_specs=P(dp, None))
+    return fn(logits, sharding.as_dtensor(targets, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +161,29 @@ def init_block(gen, cfg, kind: str, device):
         L.init_attn(gen, cfg, device)
     return {"norm1": ones, "mix": mix, "norm2": ones.clone(),
             "ffn": _ffn_init(gen, cfg, device)}
+
+
+def _ffn_spec(cfg):
+    if cfg.moe is not None:
+        return MOE.spec_moe(cfg)
+    return L.spec_mlp(cfg)
+
+
+def spec_block(cfg, kind: str):
+    if kind in ("attn", "local_attn"):
+        return {"norm1": (None,), "mix": L.spec_attn(cfg),
+                "norm2": (None,), "ffn": _ffn_spec(cfg)}
+    if kind == "mla":
+        return {"norm1": (None,), "mix": L.spec_mla(cfg),
+                "norm2": (None,), "ffn": _ffn_spec(cfg)}
+    if kind == "mlstm":
+        return R.spec_mlstm_block(cfg)
+    if kind == "slstm":
+        return R.spec_slstm_block(cfg)
+    if kind == "rglru":
+        return {"mix": R.spec_rglru_block(cfg),
+                "norm2": (None,), "ffn": _ffn_spec(cfg)}
+    raise ValueError(kind)
 
 
 def _ffn(p, cfg, x):
@@ -115,6 +233,29 @@ def init_block_cache(cfg, kind: str, B: int, S: int, device):
     shape = (B, W, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=L.cdt(cfg), device=device),
             "v": torch.zeros(shape, dtype=L.cdt(cfg), device=device)}
+
+
+def spec_block_cache(cfg, kind: str):
+    """Logical specs for cache leaves: batch over ("pod","data"); the
+    KV-cache sequence dim is sequence-parallel over "model"."""
+    if kind == "attn":
+        return {"k": ("batch", "seq", None, None),
+                "v": ("batch", "seq", None, None)}
+    if kind == "local_attn":
+        return {"k": ("batch", None, None, None),
+                "v": ("batch", None, None, None)}
+    if kind == "mla":
+        return {"latent": ("batch", "seq", None),
+                "k_rope": ("batch", "seq", None)}
+    if kind == "mlstm":
+        return (("batch", None, "model", None), ("batch", None, "model"),
+                ("batch", None))
+    if kind == "slstm":
+        return (("batch", None, None), ("batch", None, None),
+                ("batch", None, None), ("batch", None, None))
+    if kind == "rglru":
+        return {"h": ("batch", "model"), "conv": ("batch", None, "model")}
+    raise ValueError(kind)
 
 
 def _attn_cache(cfg, kind, entries: dict, cache_len):
@@ -223,6 +364,21 @@ def init_lm(gen, cfg, device):
     return params
 
 
+def spec_lm(cfg):
+    pat, n_groups, rem = _pattern(cfg)
+    spec = {
+        "emb": ("model", "fsdp"),
+        # stacked over groups: a leading None (layer) dim on every leaf
+        "blocks": sharding.stacked(tuple(spec_block(cfg, kind)
+                                         for kind in pat)),
+        "rem": tuple(spec_block(cfg, pat[i % len(pat)]) for i in range(rem)),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ("fsdp", "model")
+    return spec
+
+
 def _stack(blocks: list):
     """One tree (dicts and tuples) whose leaves stack the given trees'
     leaves.  Of one tree, the leaves are views with a leading dimension of
@@ -254,7 +410,11 @@ def _unstack(tree, n: int) -> list:
 def _embed(params, cfg, tokens, extra_embeds=None):
     """Token embeddings, after ``extra_embeds`` (B, P, d) when given (the
     vision stub's patches)."""
-    x = params["emb"][tokens].to(L.cdt(cfg))
+    emb = params["emb"]
+    if cfg.fsdp:
+        emb = gather_fsdp(emb, ("model", "fsdp"))
+    x = _constrain(embed_lookup(emb, tokens).to(L.cdt(cfg)), "batch", None,
+                   None)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
@@ -263,6 +423,8 @@ def _embed(params, cfg, tokens, extra_embeds=None):
 def _logits(params, cfg, x):
     x = L.rms_norm(x, params["final_norm"])
     w = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
+    if cfg.fsdp and not cfg.tie_embeddings:
+        w = gather_fsdp(w, ("fsdp", "model"))
     logits = L.wide(x @ w.to(x.dtype))
     V = cfg.padded_vocab
     if V != cfg.vocab_size:  # mask the padding vocab entries
@@ -276,10 +438,14 @@ def _scan_groups(params, cfg, x, apply_fn):
     remainder layers."""
     pat, n_groups, rem = _pattern(cfg)
     per_kind = [_unstack(bp, n_groups) for bp in params["blocks"]]
+    gspecs = tuple(spec_block(cfg, kind) for kind in pat)
 
     def group_body(x, g):
         for i, kind in enumerate(pat):
-            x = apply_fn(per_kind[i][g], kind, x)
+            p = per_kind[i][g]
+            if cfg.fsdp:
+                p = gather_fsdp(p, gspecs[i])
+            x = apply_fn(p, kind, x)
         return x
 
     for g in range(n_groups):
@@ -288,7 +454,10 @@ def _scan_groups(params, cfg, x, apply_fn):
         else:
             x = group_body(x, g)
     for i in range(rem):
-        x = apply_fn(params["rem"][i], pat[i % len(pat)], x)
+        rp = params["rem"][i]
+        if cfg.fsdp:
+            rp = gather_fsdp(rp, gspecs[i % len(pat)])
+        x = apply_fn(rp, pat[i % len(pat)], x)
     return x
 
 
@@ -313,10 +482,7 @@ def lm_loss(params, cfg, batch):
     logits = lm_forward(params, cfg, tokens, extra_embeds=extra)
     P = 0 if extra is None else extra.shape[1]
     # predict token t+1 from text position t
-    logp = torch.log_softmax(logits[:, P:-1], dim=-1)
-    targets = tokens[:, 1:].long()
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return nll.mean()
+    return token_nll(logits[:, P:-1], tokens[:, 1:].long()).mean()
 
 
 # ---- prefill / decode -----------------------------------------------------
@@ -334,12 +500,15 @@ def lm_prefill(params, cfg, tokens, cache_len=None, extra_embeds=None):
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     pat, n_groups, rem = _pattern(cfg)
     per_kind = [_unstack(bp, n_groups) for bp in params["blocks"]]
+    gspecs = tuple(spec_block(cfg, kind) for kind in pat)
     caches = []
     for g in range(n_groups):
         group = []
         for i, kind in enumerate(pat):
-            x, c = prefill_block(per_kind[i][g], cfg, kind, x, positions,
-                                 cache_len)
+            p = per_kind[i][g]
+            if cfg.fsdp:
+                p = gather_fsdp(p, gspecs[i])
+            x, c = prefill_block(p, cfg, kind, x, positions, cache_len)
             group.append(c)
         caches.append(tuple(group))
     rem_cache = []
@@ -360,6 +529,14 @@ def lm_cache_init(cfg, B, S, device):
                                           device) for i in range(rem))}
 
 
+def lm_cache_spec(cfg):
+    pat, n_groups, rem = _pattern(cfg)
+    return {"blocks": sharding.stacked(tuple(spec_block_cache(cfg, kind)
+                                             for kind in pat)),
+            "rem": tuple(spec_block_cache(cfg, pat[i % len(pat)])
+                         for i in range(rem))}
+
+
 def lm_decode_step(params, cfg, cache, token, pos):
     """token: (B, 1); pos: the position of the token (an int or a 0-d
     tensor).  Returns (logits (B, V), the new cache)."""
@@ -367,12 +544,15 @@ def lm_decode_step(params, cfg, cache, token, pos):
     pat, n_groups, rem = _pattern(cfg)
     per_kind = [_unstack(bp, n_groups) for bp in params["blocks"]]
     per_cache = [_unstack(bc, n_groups) for bc in cache["blocks"]]
+    gspecs = tuple(spec_block(cfg, kind) for kind in pat)
     groups = []
     for g in range(n_groups):
         new_c = []
         for i, kind in enumerate(pat):
-            x, c = decode_block(per_kind[i][g], cfg, kind, x,
-                                per_cache[i][g], pos)
+            p = per_kind[i][g]
+            if cfg.fsdp:
+                p = gather_fsdp(p, gspecs[i])
+            x, c = decode_block(p, cfg, kind, x, per_cache[i][g], pos)
             new_c.append(c)
         groups.append(tuple(new_c))
     rem_cache = []

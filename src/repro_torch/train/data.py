@@ -8,6 +8,10 @@ frame or patch embeddings bit for bit, and are placed on an explicit
 device.  numpy has no bfloat16: a float entry is drawn in float64 and
 rounded once to the compute dtype by torch, as ml_dtypes' ``astype``
 rounds it in the JAX package.
+
+With a ``mesh``, batches arrive as DTensors with ``batch_specs``'
+placements: every rank draws the same global batch and keeps its own
+rows, bit-equal to the slice of the global batch.
 """
 from __future__ import annotations
 
@@ -15,17 +19,21 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCfg
-from repro_torch.models.model import batch_struct, float_tensor
+from repro_torch.models.model import batch_specs, batch_struct, float_tensor
+from repro_torch.sharding import distribute_tree, resolve_tree
 
 
 class SyntheticStream:
     """Zipf-ish synthetic token batches; seekable by step index."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeCfg, seed: int = 1234,
-                 *, device="cuda"):
-        self.cfg, self.shape, self.seed = cfg, shape, seed
-        self.device = torch.device(device)
+                 mesh=None, *, device="cuda"):
+        self.cfg, self.shape, self.seed, self.mesh = cfg, shape, seed, mesh
+        self.device = torch.device(device if mesh is None
+                                   else mesh.device_type)
         self._struct = batch_struct(cfg, shape, kind="train")
+        self._shardings = None if mesh is None else resolve_tree(
+            self._struct, batch_specs(cfg, shape, kind="train"), mesh, False)
 
     def batch_numpy(self, step: int) -> dict:
         """The draws of ``step``: integer entries in their dtype, float
@@ -50,4 +58,6 @@ class SyntheticStream:
             out[name] = torch.from_numpy(arr).to(self.device) \
                 if s.dtype == "int32" else \
                 float_tensor(arr, s.dtype, self.device)
+        if self._shardings is not None:
+            return distribute_tree(out, self._shardings)
         return out

@@ -27,6 +27,11 @@ def adamw_init(params, opt_dtype="float32"):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def adamw_specs(param_specs):
+    """Optimizer-state sharding mirrors param sharding."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def _leaves(tree) -> list:
     return [t for _, t in leaves_with_paths(tree)]
 

@@ -29,7 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.capture import (leaves_with_paths, map_tree,
                                       snapshot_device)
 from repro_torch.kernels.ops import check_device
-from repro_torch.models.model import init_model, make_loss_fn
+from repro_torch.models.model import init_model, make_loss_fn, model_specs
 from repro_torch.train import optimizer as opt_lib
 
 
@@ -43,6 +43,18 @@ def init_train_state(cfg: ModelConfig, *, generator: torch.Generator = None,
         generator = torch.Generator(device=device).manual_seed(0)
     params = init_model(cfg, generator=generator, device=device)
     return {"params": params, "opt": opt_lib.adamw_init(params, cfg.opt_dtype)}
+
+
+def train_state_specs(cfg: ModelConfig):
+    pspecs = model_specs(cfg)
+    return {"params": pspecs, "opt": opt_lib.adamw_specs(pspecs)}
+
+
+def resolve_state_shardings(cfg, mesh, state_shapes):
+    """NamedSharding tree for a train state (params+opt) on a mesh."""
+    from repro_torch.sharding import resolve_tree
+
+    return resolve_tree(state_shapes, train_state_specs(cfg), mesh, cfg.fsdp)
 
 
 def make_train_step(cfg: ModelConfig, *, lr=3e-4, capture=False):
